@@ -27,6 +27,10 @@
 //   - keys past N get energy -inf, so a ragged last tile needs no padding of
 //     the inputs (the TPU path padded N to its 128/512 tiles and masked with
 //     a -1e4 bias column instead).
+// When a backward will follow, the kernel also writes each row's float32
+// log-sum-exp, lse = m + log(l), from which the backward kernels
+// (sgam_flash_bwd.cu) recompute the softmax; under no-grad the pointer is
+// null and nothing more is stored.
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -42,7 +46,7 @@ template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     position_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, T* __restrict__ out,
-                              int N) {
+                              float* __restrict__ lse, int N) {
   constexpr int DS = DV / kSlices;  // output channels per thread
   static_assert(DS % 4 == 0, "value slices are read as float4");
   __shared__ float s_k[kKeys][DQK];
@@ -119,27 +123,29 @@ __global__ void __launch_bounds__(kThreads)
   T* o = out + (b * N + i) * DV + slice * DS;
 #pragma unroll
   for (int c = 0; c < DS; ++c) o[c] = sg::from_f32<T>(acc[c] * inv);
+  if (lse != nullptr && slice == 0) lse[b * N + i] = m + logf(l);
 }
 
 template <typename T, int DQK, int DV>
-void launch(const void* q, const void* k, const void* v, void* out, int B,
-            int N, cudaStream_t stream) {
+void launch(const void* q, const void* k, const void* v, void* out,
+            float* lse, int B, int N, cudaStream_t stream) {
   const dim3 grid((N + kQueries - 1) / kQueries, B);
   position_attention_kernel<T, DQK, DV><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), N);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, N);
 }
 
 template <typename T>
 int dispatch_width(const void* q, const void* k, const void* v, void* out,
-                   int B, int N, int dqk, int dv, cudaStream_t stream) {
+                   float* lse, int B, int N, int dqk, int dv,
+                   cudaStream_t stream) {
   // SGAM's widths are d_v = C and d_qk = C / 8.
   if (dqk == 8 && dv == 64) {
-    launch<T, 8, 64>(q, k, v, out, B, N, stream);
+    launch<T, 8, 64>(q, k, v, out, lse, B, N, stream);
   } else if (dqk == 4 && dv == 32) {
-    launch<T, 4, 32>(q, k, v, out, B, N, stream);
+    launch<T, 4, 32>(q, k, v, out, lse, B, N, stream);
   } else if (dqk == 2 && dv == 16) {
-    launch<T, 2, 16>(q, k, v, out, B, N, stream);
+    launch<T, 2, 16>(q, k, v, out, lse, B, N, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -149,14 +155,17 @@ int dispatch_width(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q, k: (B, N, dqk); v, out: (B, N, dv); all contiguous and of one type.
+// lse: (B, N) float32, or null when no backward will need it.
 extern "C" int sg_position_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int N,
-                                     int dqk, int dv, int dtype,
+                                     const void* v, void* out, void* lse,
+                                     int B, int N, int dqk, int dv, int dtype,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lsef = static_cast<float*>(lse);
   if (dtype == sg::kFloat32)
-    return dispatch_width<float>(q, k, v, out, B, N, dqk, dv, st);
+    return dispatch_width<float>(q, k, v, out, lsef, B, N, dqk, dv, st);
   if (dtype == sg::kBFloat16)
-    return dispatch_width<__nv_bfloat16>(q, k, v, out, B, N, dqk, dv, st);
+    return dispatch_width<__nv_bfloat16>(q, k, v, out, lsef, B, N, dqk, dv,
+                                         st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

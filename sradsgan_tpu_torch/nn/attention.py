@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sradsgan_tpu_torch.ops import plain_dtype
 from sradsgan_tpu_torch.ops.pooling import avg_max_pool
 from sradsgan_tpu_torch.ops.sgam_flash import position_attention
 from sradsgan_tpu_torch.ops.spatial_gate import KERNEL_SIZE, spatial_gate
@@ -101,7 +102,8 @@ class SpatialSelfAttention(nn.Module):
 
 
 class ChannelSelfAttention(nn.Module):
-    """CGAM: Gram energy and its softmax in float32, whatever x's dtype."""
+    """CGAM: Gram energy and its softmax in float32, whatever x's dtype
+    (autocast included)."""
 
     def __init__(self):
         super().__init__()
@@ -110,10 +112,11 @@ class ChannelSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         flat = x.flatten(2)                                   # (B, C, N)
-        f32 = flat.float()
-        energy = torch.bmm(f32, f32.transpose(1, 2))          # (B, C, C)
-        energy = energy.amax(dim=-1, keepdim=True) - energy
-        attn = torch.softmax(energy, dim=-1).to(x.dtype)
+        f32 = flat.to(plain_dtype(flat))
+        with torch.autocast(x.device.type, enabled=False):
+            energy = torch.bmm(f32, f32.transpose(1, 2))      # (B, C, C)
+            energy = energy.amax(dim=-1, keepdim=True) - energy
+            attn = torch.softmax(energy, dim=-1).to(x.dtype)
         out = torch.bmm(attn, flat).reshape(b, c, h, w)
         return self.gamma.to(x.dtype) * out + x
 

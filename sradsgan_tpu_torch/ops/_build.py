@@ -1,10 +1,11 @@
 """Build, load and launch the port's CUDA kernels.
 
 The sources in ``sradsgan_tpu_torch/csrc`` are compiled at first use by
-``nvcc`` into one shared library with a plain C interface, which is loaded
-with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The library
-lands in ``sradsgan_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
-and flags, so an edited source rebuilds and an unchanged one is reused.
+``nvcc``, one process per source, all started together, and linked into one
+shared library with a plain C interface, which is loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  The library lands in
+``sradsgan_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one is reused.
 
 Each exported C function takes device pointers, sizes, an element-type code
 and the CUDA stream, launches one kernel on that stream and returns the
@@ -29,7 +30,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libsradsgan_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Element-type codes, as in csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,7 +41,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sg_avg_max_pool": [_P, _P, _P, _I, _I, _I, _P],
     "sg_spatial_gate": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sg_position_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sg_spatial_gate_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _P],
+    "sg_position_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sg_position_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _P],
 }
 
 
@@ -65,19 +70,41 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; return their joined output, or raise
+    with it if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    log, failed = [], False
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        failed |= proc.returncode != 0
+    text = "\n".join(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{text}")
+    return text
+
+
 def build(out_dir: Path) -> Path:
-    """Compile every source into ``out_dir/LIB_NAME``; the compiler's output
-    (including ptxas register and shared-memory use) goes to build.log."""
+    """Compile every source into ``out_dir/LIB_NAME``: one ``nvcc`` per
+    source, all at once, then one link.  The compiler's output (including
+    ptxas register and shared-memory use) goes to build.log."""
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / LIB_NAME
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    tag = os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
+    try:
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(sources(), objs)])
+        tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+        log += _run_all([[_nvcc(), "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return lib
 
@@ -99,14 +126,21 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def forbid_grad(op: str, *tensors: torch.Tensor) -> None:
-    """The kernels are forward-only; refuse a call that autograd would need
-    to differentiate rather than hand back a tensor cut from the graph."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{op} has no backward yet: its backward kernel comes with the "
-            "training port (ROADMAP.md, Queue 2).  Call it under "
-            "torch.no_grad() or torch.inference_mode().")
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd will have to differentiate an op of these
+    inputs, so the op goes through its ``autograd.Function``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def check_like(op: str, t: torch.Tensor, ref: torch.Tensor,
+               name: str) -> None:
+    """``t`` must match ``ref`` in shape, dtype and device, contiguous."""
+    if (t.shape != ref.shape or t.dtype != ref.dtype
+            or t.device != ref.device or not t.is_contiguous()):
+        raise ValueError(
+            f"{op}: {name} must be a contiguous {ref.dtype} tensor of shape "
+            f"{tuple(ref.shape)} on {ref.device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}")
 
 
 def check_input(op: str, t: torch.Tensor, ndim: int) -> None:

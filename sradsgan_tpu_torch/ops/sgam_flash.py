@@ -3,60 +3,148 @@
 Counterpart of ``sradsgan_tpu/ops/sgam_flash.py``.  On CUDA tensors
 :func:`position_attention` launches the hand-written flash kernel in
 ``csrc/sgam_flash.cu``, which keeps float32 running softmax statistics and
-never writes the (N, N) energy; on CPU tensors it runs
+never writes the (N, N) energy, and its backward the two kernels in
+``csrc/sgam_flash_bwd.cu``, which recompute the probabilities from the row
+log-sum-exp the forward saved; on CPU tensors it runs
 :func:`position_attention_plain`, the exact float32 softmax of the JAX
-package's f32 path (``sradsgan_tpu/nn/attention.py``).
+package's f32 path (``sradsgan_tpu/nn/attention.py``), and its autograd.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+from torch.autograd.function import once_differentiable
 
-from sradsgan_tpu_torch.ops import _build
+from sradsgan_tpu_torch.ops import _build, plain_dtype
 
-# (d_qk, d_v) pairs the kernel is instantiated for: SGAM at C = 16, 32, 64.
+# (d_qk, d_v) pairs the kernels are instantiated for: SGAM at C = 16, 32, 64.
 KERNEL_WIDTHS = ((2, 16), (4, 32), (8, 64))
 
 
 def position_attention_plain(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor) -> torch.Tensor:
     """q, k: (B, N, d_qk); v: (B, N, d_v) -> (B, N, d_v) in v.dtype."""
-    energy = torch.bmm(q.float(), k.float().transpose(1, 2))
-    return torch.bmm(torch.softmax(energy, dim=-1), v.float()).to(v.dtype)
+    dtype = plain_dtype(q)
+    with torch.autocast(q.device.type, enabled=False):
+        energy = torch.bmm(q.to(dtype), k.to(dtype).transpose(1, 2))
+        out = torch.bmm(torch.softmax(energy, dim=-1), v.to(dtype))
+    return out.to(v.dtype)
 
 
-def position_attention_cuda(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor) -> torch.Tensor:
-    """The kernel: streamed keys, float32 online softmax."""
+def position_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, dout: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) for output cotangent dout: the autograd of
+    :func:`position_attention_plain`."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = position_attention_plain(*inputs)
+        return torch.autograd.grad(out, inputs, dout)
+
+
+def _check_qkv(op: str, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> None:
     for t in (q, k, v):
-        _build.check_input("position_attention", t, 3)
+        _build.check_input(op, t, 3)
     b, n, d_qk = q.shape
     d_v = v.shape[-1]
     if (k.shape != q.shape or v.shape[:2] != (b, n)
             or len({q.dtype, k.dtype, v.dtype}) != 1
             or len({q.device, k.device, v.device}) != 1):
         raise ValueError(
-            "position_attention: q, k (B, N, d_qk) and v (B, N, d_v) must "
-            f"share batch, length, dtype and device; got {tuple(q.shape)} "
+            f"{op}: q, k (B, N, d_qk) and v (B, N, d_v) must share batch, "
+            f"length, dtype and device; got {tuple(q.shape)} "
             f"{tuple(k.shape)} {tuple(v.shape)}")
     if (d_qk, d_v) not in KERNEL_WIDTHS:
-        raise ValueError(f"position_attention: no kernel for d_qk={d_qk}, "
-                         f"d_v={d_v}; built for {KERNEL_WIDTHS}")
+        raise ValueError(f"{op}: no kernel for d_qk={d_qk}, d_v={d_v}; "
+                         f"built for {KERNEL_WIDTHS}")
+
+
+def position_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, with_lse: bool = False):
+    """The kernel: streamed keys, float32 online softmax.  Returns the
+    output, or with ``with_lse`` (output, (B, N) float32 row log-sum-exp)
+    for the backward."""
+    _check_qkv("position_attention", q, k, v)
+    b, n, d_qk = q.shape
     out = torch.empty_like(v)
+    lse: Optional[torch.Tensor] = None
+    if with_lse:
+        lse = torch.empty((b, n), device=q.device, dtype=torch.float32)
     _build.launch("sg_position_attention", q.device, q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, d_qk, d_v,
-                  _build.DTYPE_CODES[q.dtype])
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  0 if lse is None else lse.data_ptr(), b, n, d_qk,
+                  v.shape[-1], _build.DTYPE_CODES[q.dtype])
     position_attention_cuda.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 position_attention_cuda.launches = 0
 
 
+def position_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, out: torch.Tensor,
+                                dout: torch.Tensor, lse: torch.Tensor
+                                ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels: (dq, dk, dv).  delta_i = dO_i . O_i is formed
+    here in float32, outside the kernels, as the JAX library does."""
+    op = "position_attention_bwd"
+    _check_qkv(op, q, k, v)
+    _build.check_like(op, out, v, "out")
+    _build.check_like(op, dout, v, "dout")
+    b, n, d_qk = q.shape
+    if (lse.shape != (b, n) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"{op}: lse must be a contiguous float32 ({b}, {n}) "
+                         f"tensor on {q.device}")
+    delta = (dout.float() * out.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _build.launch("sg_position_attention_bwd", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), b, n, d_qk, v.shape[-1],
+                  _build.DTYPE_CODES[q.dtype])
+    position_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+position_attention_bwd_cuda.launches = 0
+
+
+class PositionAttentionFn(torch.autograd.Function):
+    """Forward: the flash kernel, saving q, k, v, the output and the row
+    log-sum-exp (plain on the CPU).  Backward: the flash backward kernels,
+    or :func:`position_attention_bwd_plain` on the CPU.  First order only:
+    nothing differentiates SGAM twice."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, q, k, v):
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
+            return position_attention_plain(q, k, v)
+        out, lse = position_attention_cuda(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    @once_differentiable
+    def backward(ctx, dout):
+        if dout.device.type == "cpu":
+            return position_attention_bwd_plain(*ctx.saved_tensors, dout)
+        q, k, v, out, lse = ctx.saved_tensors
+        return position_attention_bwd_cuda(q, k, v, out, dout.contiguous(),
+                                           lse)
+
+
 def position_attention(q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor) -> torch.Tensor:
-    """Unscaled softmax(q k^T) v over key positions; forward only."""
-    _build.forbid_grad("position_attention", q, k, v)
+    """Unscaled softmax(q k^T) v over key positions; differentiable once."""
+    if _build.needs_grad(q, k, v):
+        return PositionAttentionFn.apply(q, k, v)
     if q.device.type == "cpu":
         return position_attention_plain(q, k, v)
     return position_attention_cuda(q, k, v)

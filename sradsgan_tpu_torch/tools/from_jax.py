@@ -3,8 +3,13 @@
 :func:`sradsgan_state_dict` is the inverse of
 ``sradsgan_tpu/tools/import_reference.py:import_sradsgan``: it takes the JAX
 generator's param tree (nested dicts of arrays) and returns the port's
-``state_dict``.  Conv kernels go HWIO -> OIHW, the CLAM's Dense kernels
-(in, out) -> bias-free 1x1 convs (out, in, 1, 1), the SLAM kernel
+``state_dict``.  :func:`discriminator_state_dict` does the same for the CBAM
+patch discriminator (params and BatchNorm ``batch_stats``; the inverse of
+``import_patch_discriminator``), and :func:`vgg19_state_dict` for the VGG19
+content features (the JAX param tree, or the ``.npz`` of
+``SRADSGAN_TPU_VGG19_NPZ`` read with :func:`load_npz`).  Conv kernels go
+HWIO -> OIHW, the CLAM's Dense kernels (in, out) -> bias-free 1x1 convs
+(out, in, 1, 1), the SLAM kernel
 (7, 7, 2, 1) -> (1, 2, 7, 7) with plane 0 the channel mean and plane 1 the
 channel max, and each ``gamma`` stays (1,).  The upsample conv is shared by
 every stage, so it maps once.
@@ -17,10 +22,14 @@ needs JAX.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from sradsgan_tpu_torch.losses.vgg import LAYERS as VGG_LAYERS
+from sradsgan_tpu_torch.models.discriminators import (ATTENTION_AFTER,
+                                                      DEFAULT_BLOCKS)
 
 Tree = Mapping[str, Any]
 
@@ -85,8 +94,72 @@ def sradsgan_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
     conv("GAB_UP.conv", ga["Conv_0"])
     conv("GAB_UP.upsampling.0", params["UpsampleHead_0"]["Conv_0"])
     conv("conv3.0", params["ConvBlock_0"]["Conv_0"])
-    return {k: torch.from_numpy(np.array(v, np.float32))  # a writable copy
+    return _as_tensors(sd)
+
+
+def _as_tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v))  # a writable copy
             for k, v in sd.items()}
+
+
+def discriminator_state_dict(
+        variables: Tree,
+        blocks: Sequence[Tuple[int, int, bool]] = DEFAULT_BLOCKS
+) -> Dict[str, torch.Tensor]:
+    """JAX ``PatchDiscriminator`` variables (``{"params", "batch_stats"}``)
+    -> the port's ``PatchDiscriminator`` state dict: convs OIHW, BatchNorm
+    scale and bias as weight and bias with their running mean and variance,
+    the CBAM's Dense kernels as 1x1 convs and its gate kernel as (1, 2, 7,
+    7).  The walk follows the port's flat ``model`` Sequential."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    seq = conv_i = bn_i = 0
+
+    def conv(node: Tree) -> None:
+        nonlocal seq
+        sd[f"model.{seq}.weight"] = _oihw(node["kernel"])
+        sd[f"model.{seq}.bias"] = f32(node["bias"])
+        seq += 1
+
+    for i, (_, _, normalize) in enumerate(blocks, 1):
+        conv(params[f"Conv_{conv_i}"])
+        conv_i += 1
+        if normalize:
+            name = f"BatchNorm_{bn_i}"
+            sd[f"model.{seq}.weight"] = f32(params[name]["scale"])
+            sd[f"model.{seq}.bias"] = f32(params[name]["bias"])
+            sd[f"model.{seq}.running_mean"] = f32(stats[name]["mean"])
+            sd[f"model.{seq}.running_var"] = f32(stats[name]["var"])
+            sd[f"model.{seq}.num_batches_tracked"] = np.array(0, np.int64)
+            seq += 1
+            bn_i += 1
+        seq += 1  # LeakyReLU
+        if i == ATTENTION_AFTER:
+            gate = params["ChannelGate_0"]
+            sd[f"model.{seq}.fc1.weight"] = _dense_as_conv(
+                gate["Dense_0"]["kernel"])
+            sd[f"model.{seq}.fc2.weight"] = _dense_as_conv(
+                gate["Dense_1"]["kernel"])
+            sd[f"model.{seq + 1}.conv1.weight"] = _oihw(
+                params["SpatialGate_0"]["Conv_0"]["kernel"])
+            seq += 2
+    conv(params[f"Conv_{conv_i}"])
+    return _as_tensors(sd)
+
+
+def vgg19_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``VGG19Features`` params (``{conv1_1: {kernel, bias}, ...}``, or
+    ``{"params": ...}``) -> the port's ``VGG19Features`` state dict
+    (torchvision's ``features.{index}`` names)."""
+    if "params" in params:
+        params = params["params"]
+    sd = {}
+    for name, index, *_ in VGG_LAYERS:
+        sd[f"features.{index}.weight"] = _oihw(params[name]["kernel"])
+        sd[f"features.{index}.bias"] = np.asarray(params[name]["bias"],
+                                                  np.float32)
+    return _as_tensors(sd)
 
 
 def _flatten(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Edge shapes that chip_smoke.py does not cover: single elements, images
-smaller than the 7x7 stencil, ragged tiles, attention lengths around the
-key-tile size and every instantiated width.  Marked ``gpu``; they skip
+smaller than the 7x7 stencil or the 16x16 tile, ragged tiles, tied maxima,
+attention lengths around the key-tile size and every instantiated width,
+for the forward kernels and the backward ones; the gate's double backward
+on the card; and the dispatch that sends CUDA tensors to the kernels.  Marked ``gpu``; they skip
 where no CUDA device is present.  This file imports neither JAX nor the
 JAX package, so on a machine without them run it as
 
@@ -36,9 +38,12 @@ def _randn(shape, dtype, device, seed=0, std=1.0):
     return (torch.randn(shape, generator=g) * std).to(device, dtype)
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, floor=0.0):
+    """Within TOL of max |want|, or of ``floor`` where the reference is
+    smaller (a gradient that is zero by the math rounds to noise)."""
     err = (got.float() - want.float()).abs().max()
-    assert err <= TOL[dtype] * want.float().abs().max(), float(err)
+    bound = TOL[dtype] * max(float(want.float().abs().max()), floor)
+    assert err <= bound, float(err)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -78,6 +83,91 @@ def test_attention_kernel(cuda, dtype, n, d_qk, d_v):
     _close(got, want, dtype)
 
 
+GATE_BWD_SHAPES = [(1, 1, 1, 1), (1, 4, 3, 5), (2, 64, 17, 33),
+                   (1, 8, 70, 70), (2, 256, 27, 27), (2, 64, 54, 54)]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", GATE_BWD_SHAPES)
+def test_gate_bwd_kernel(cuda, dtype, shape, ties):
+    x = _randn(shape, torch.float32, cuda)
+    if ties:  # a few integer values: most channel maxima are tied
+        x = x.mul(1.5).round()
+    x = x.to(dtype)
+    g = _randn(shape, dtype, cuda, seed=5)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    dx, ds, mean, mx = spatial_gate.spatial_gate_bwd_cuda(x, w, g)
+    dw = spatial_gate.dw_contraction(ds, torch.stack([mean, mx], 1), w)
+    dx_p, dw_p = spatial_gate.spatial_gate_bwd_plain(x, w, g)
+    torch.cuda.synchronize()
+    _close(dx, dx_p, dtype)
+    _close(dw, dw_p, dtype)
+    _close(mean, x.float().mean(1), torch.float32)
+    assert torch.equal(mx, x.float().amax(1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 729])
+@pytest.mark.parametrize("d_qk,d_v", sgam_flash.KERNEL_WIDTHS)
+def test_attention_bwd_kernel(cuda, dtype, n, d_qk, d_v):
+    q = _randn((3, n, d_qk), dtype, cuda, seed=2, std=0.5)
+    k = _randn((3, n, d_qk), dtype, cuda, seed=3, std=0.5)
+    v = _randn((3, n, d_v), dtype, cuda, seed=4)
+    dout = _randn((3, n, d_v), dtype, cuda, seed=6)
+    out, lse = sgam_flash.position_attention_cuda(q, k, v, with_lse=True)
+    _close(out, sgam_flash.position_attention_cuda(q, k, v), dtype)
+    want_lse = torch.logsumexp(q.float() @ k.float().transpose(1, 2), -1)
+    _close(lse, want_lse, torch.float32)
+    got = sgam_flash.position_attention_bwd_cuda(q, k, v, out, dout, lse)
+    want = sgam_flash.position_attention_bwd_plain(q, k, v, dout)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        # one key: softmax is 1 whatever q and k, so dq = dk = 0 exactly
+        _close(a, b, dtype, floor=1.0 if n == 1 else 0.0)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 20, 19), (2, 256, 27, 27)])
+def test_gate_double_backward_on_cuda(cuda, shape):
+    """The WGAN-GP's second order through the gate on the card (K2 and K4
+    in the first order) against autograd of the plain gate."""
+    x0 = _randn(shape, torch.float32, cuda)
+    a = _randn(shape, torch.float32, cuda, seed=7)
+    w0 = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+
+    def second_order(gate):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        (gx,) = torch.autograd.grad((gate(x, w) * a).sum(), x,
+                                    create_graph=True)
+        return torch.autograd.grad((gx * gx).sum(), (x, w))
+
+    before = spatial_gate.spatial_gate_bwd_cuda.launches
+    got = second_order(spatial_gate.spatial_gate)
+    assert spatial_gate.spatial_gate_bwd_cuda.launches > before
+    want = second_order(spatial_gate.spatial_gate_plain)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        err = (g - r).abs().max()
+        assert err <= 1e-4 * r.abs().max(), float(err)
+
+
+def test_backward_dispatch_launches_the_kernels_on_cuda(cuda):
+    x = _randn((2, 8, 9, 9), torch.float32, cuda).requires_grad_()
+    w = _randn((1, 2, 7, 7), torch.float32, cuda).requires_grad_()
+    before = spatial_gate.spatial_gate_bwd_cuda.launches
+    spatial_gate.spatial_gate(x, w).sum().backward()
+    assert spatial_gate.spatial_gate_bwd_cuda.launches == before + 1
+    q = _randn((2, 40, 8), torch.float32, cuda).requires_grad_()
+    v = _randn((2, 40, 64), torch.float32, cuda).requires_grad_()
+    fwd = sgam_flash.position_attention_cuda.launches
+    bwd = sgam_flash.position_attention_bwd_cuda.launches
+    sgam_flash.position_attention(q, q, v).sum().backward()
+    assert sgam_flash.position_attention_cuda.launches == fwd + 1
+    assert sgam_flash.position_attention_bwd_cuda.launches == bwd + 1
+    assert q.grad.abs().max() > 0 and v.grad.abs().max() > 0
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = _randn((2, 8, 9, 9), torch.float32, cuda)
     w = _randn((1, 2, 7, 7), torch.float32, cuda)
@@ -90,6 +180,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="no kernel"):
         q = _randn((1, 10, 3), torch.float32, cuda)
         sgam_flash.position_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="g must be a contiguous"):
+        spatial_gate.spatial_gate_bwd_cuda(x, w, x.transpose(2, 3))
+    q = _randn((1, 10, 8), torch.float32, cuda)
+    v = _randn((1, 10, 64), torch.float32, cuda)
+    out, lse = sgam_flash.position_attention_cuda(q, q, v, with_lse=True)
+    with pytest.raises(ValueError, match="lse must be"):
+        sgam_flash.position_attention_bwd_cuda(q, q, v, out, v, lse.double())
 
 
 def test_dispatch_launches_the_kernel_on_cuda(cuda):

@@ -1,5 +1,6 @@
 """The port's serving path against the JAX package's, and the port's
-boundaries: no JAX or PIL at import, no silent CPU, no silent fallback."""
+boundaries: no JAX or PIL at import, no silent CPU, no silent fallback, and
+gradients through every kernel op."""
 
 import json
 import subprocess
@@ -74,13 +75,19 @@ def test_port_imports_no_jax_flax_or_pil():
             "import sradsgan_tpu_torch, sradsgan_tpu_torch.serving\n"
             "import sradsgan_tpu_torch.cli, sradsgan_tpu_torch.models\n"
             "import sradsgan_tpu_torch.tools.from_jax, chip_smoke\n"
+            "import sradsgan_tpu_torch.train.trainer\n"
+            "import sradsgan_tpu_torch.train.state\n"
+            "import sradsgan_tpu_torch.losses.gan\n"
+            "import sradsgan_tpu_torch.models.discriminators\n"
+            "import sradsgan_tpu_torch.tools.profile_train\n"
             "print(json.dumps({m: m in sys.modules\n"
-            "                  for m in ('jax', 'flax', 'PIL')}))\n")
+            "                  for m in ('jax', 'flax', 'PIL',\n"
+            "                            'sradsgan_tpu')}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
-        "jax": False, "flax": False, "PIL": False}
+        "jax": False, "flax": False, "PIL": False, "sradsgan_tpu": False}
 
 
 def _kernel_args():
@@ -94,6 +101,38 @@ def _kernel_args():
             "attention": (sgam_flash, "position_attention", (q, q, v))}
 
 
+def _backward_kernel_args():
+    (_, _, (x, w)), (_, _, (q, _, v)) = (_kernel_args()[k]
+                                         for k in ("gate", "attention"))
+    lse = torch.zeros(q.shape[:2])
+    return {"gate_bwd": (spatial_gate.spatial_gate_bwd_cuda, (x, w, x)),
+            "attention_bwd": (sgam_flash.position_attention_bwd_cuda,
+                              (q, q, v, v, v, lse))}
+
+
+@pytest.mark.parametrize("op", ["gate_bwd", "attention_bwd"])
+def test_backward_kernel_wrapper_refuses_a_cpu_tensor(op):
+    fn, args = _backward_kernel_args()[op]
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        fn(*args)
+    assert fn.launches == 0
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    """No toolkit, or a toolkit without nvcc: the build raises; nothing
+    falls back to the plain versions."""
+    from torch.utils import cpp_extension
+
+    from sradsgan_tpu_torch.ops import _build
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="need nvcc"):
+        _build.build(tmp_path / "a")
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        _build.build(tmp_path / "b")
+    assert not (tmp_path / "b" / _build.LIB_NAME).exists()
+
+
 @pytest.mark.parametrize("op", ["pool", "gate", "attention"])
 def test_kernel_wrapper_refuses_a_cpu_tensor(op):
     module, name, args = _kernel_args()[op]
@@ -104,10 +143,20 @@ def test_kernel_wrapper_refuses_a_cpu_tensor(op):
 
 @pytest.mark.parametrize("op", ["pool", "gate", "attention"])
 def test_kernel_op_refuses_to_be_differentiated(op):
+    """The ops no longer refuse autograd: gradients flow into every input
+    through their ``autograd.Function``s, and under no-grad the forward
+    alone runs."""
     module, name, args = _kernel_args()[op]
     fn = getattr(module, name)
-    grad_args = (args[0].clone().requires_grad_(),) + args[1:]
-    with pytest.raises(NotImplementedError, match="no backward"):
-        fn(*grad_args)
+    grad_args = [a.clone().requires_grad_() for a in args]
+    out = fn(*grad_args)
+    outs = out if isinstance(out, tuple) else (out,)
+    grads = torch.autograd.grad([o.sum() for o in outs], grad_args)
+    for a, g in zip(grad_args, grads):
+        assert g.shape == a.shape and torch.isfinite(g).all()
+        assert g.abs().max() > 0
     with torch.no_grad():
-        fn(*grad_args)  # forward only is fine
+        again = fn(*grad_args)
+    for o, a in zip(outs, again if isinstance(again, tuple) else (again,)):
+        assert not a.requires_grad
+        torch.testing.assert_close(a, o.detach(), rtol=0, atol=0)
