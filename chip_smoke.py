@@ -12,7 +12,11 @@ Phases, each of which raises (exit code 1) on failure:
 3. kernels: each kernel against its plain PyTorch version on the card at
    the train step's and the serving path's shapes, float32 and bfloat16,
    every output, with its error and its time beside the plain version's
-   (CUDA events);
+   (CUDA events), beside its bound (the least time the card could take:
+   the bytes the function must move over the memory rate, or its
+   operations over the peak rate of their type, whichever is larger) and,
+   where one PyTorch call computes the same function, that call's time;
+   the fused RAB tail also beside the unfused composition it replaces;
 4. serving: the full-width SRADSGAN x4 generator (12 groups x 3 RABs x 64
    filters, seeded random weights, both attention gains 0.5) served by
    ``serving.Predictor``: a batch of four 54^2 requests, a 60x50 and a
@@ -20,7 +24,11 @@ Phases, each of which raises (exit code 1) on failure:
    launch counters must show that every kernel of that path ran.  The
    card's output for two 54^2 images is held against the CPU plain path
    (TF32 off), the bf16 output against the float32 one, and the
-   batch-of-four latency is timed in both types;
+   batch-of-four latency is timed in both types.  Then the same weights
+   in a generator built with ``rab_tail="fused"``: the request held
+   against the unfused card
+   output, its launch counts (the fused tail 48 times a forward, the
+   separate pool and gate none) and its latency;
 5. train, correctness: one float32 WGAN-GP step of the full-width x4
    ``train.Trainer`` (generator, CBAM patch discriminator, VGG19 content
    term; seeded fan-in-scaled conv weights, gains 0.5) at batch 2 of
@@ -30,10 +38,22 @@ Phases, each of which raises (exit code 1) on failure:
    bound per network (GRAD_TOL), which the CPU's own float32 step must meet
    too, and the launch counters must show K1-K5 at the counts the module
    structure predicts, the gate backward in the generator and in the
-   discriminator (penalty included);
+   discriminator (penalty included); once with the unfused RAB tails and
+   once with the fused ones (fused on both sides), where it also prints how
+   far the fused card's sr and D gradients lie from the unfused card's;
+   then one batch of the validation sweep (one image, so the fused tail and
+   the SGAM at B = 1): the fused sr against the unfused one on the card;
 6. train, timing: steps at batch 16 of 54^2 -> 216^2 in float32 (TF32 off)
-   and in the mixed precision of ``cfg.bf16``, in ms per step and MP/s of
-   HR output; the mixed-precision losses must stay finite.
+   and in the mixed precision of ``cfg.bf16``, unfused and fused, in ms per
+   step and MP/s of HR output; the mixed-precision losses must stay finite;
+7. the training entry point: ``sradsgan_tpu_torch.cli train --model
+   sradsgan --scale 4 --data synthetic --model-kwargs '{"rab_tail":
+   "fused"}' --no-final-eval --epochs 2`` at the default sizes (512
+   synthetic images in batches of 16, mixed precision, a validation sweep
+   of 64 images after each epoch), in this process: it must write
+   ``ckpt_best.pt``, ``loss_log.txt`` and ``val_log.txt``, end with finite
+   metrics, launch every kernel at the counts the loop's structure gives,
+   and it prints the data feed's share of the last epoch.
 
 It prints the kernels' record as one JSON line before the last, and ends
 with ``{"ok": true, "device": {...}}``.
@@ -41,18 +61,29 @@ with ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
+from sradsgan_tpu_torch import cli
+from sradsgan_tpu_torch.data.datasets import build_test_dataset
+from sradsgan_tpu_torch.data.loader import DataLoader
 from sradsgan_tpu_torch.evaluation.tiled import forward_numpy
 from sradsgan_tpu_torch.models import create_generator
-from sradsgan_tpu_torch.ops import _build, pooling, sgam_flash, spatial_gate
+from sradsgan_tpu_torch.nn.attention import LocalAttention
+from sradsgan_tpu_torch.ops import (_build, pooling, rab_tail, sgam_flash,
+                                    spatial_gate)
 from sradsgan_tpu_torch.serving import Predictor
 from sradsgan_tpu_torch.tools.profile_train import make_batch, make_trainer
 
@@ -75,6 +106,12 @@ SLICE_TOL = 1e-4  # card vs CPU plain path, float32 with TF32 off
 GRAD_TOL = {"generator": 1e-3, "discriminator": 2e-2}
 ZERO_TOL = 1e-3
 LOSS_TOL = 1e-4
+# The card's published peaks (NVIDIA H100 SXM data sheet), for the bounds:
+# device memory rate, and dense FLOP/s by the inputs' type (float32 outside
+# the tensor cores: the parity mode keeps TF32 off; bf16 on them).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+L2_BYTES = 50 * 2 ** 20
 
 KERNELS = {
     "avg_max_pool": dict(
@@ -97,6 +134,10 @@ KERNELS = {
         cuda=sgam_flash.position_attention_bwd_cuda,
         source="sradsgan_tpu_torch/csrc/sgam_flash_bwd.cu",
         replaces="sradsgan_tpu/ops/sgam_flash.py:126"),
+    "rab_tail": dict(
+        cuda=rab_tail.rab_tail_cuda,
+        source="sradsgan_tpu_torch/csrc/rab_tail.cu",
+        replaces="sradsgan_tpu/ops/pallas/rab_tail.py:132"),
 }
 
 
@@ -167,6 +208,23 @@ def _randn(shape, dtype, seed, scale=1.0):
     return (torch.randn(shape, generator=g) * scale).to("cuda", dtype)
 
 
+def _cold(call, *inputs):
+    """``call(*inputs)`` as a zero-argument call that takes its inputs in
+    turn from clones whose total is four times the card's L2 (at most 64
+    sets), so that a replayed graph of calls reads them from device memory:
+    the time of a kernel whose inputs were just written by other kernels
+    over other data, as in the model."""
+    size = sum(t.numel() * t.element_size() for t in inputs)
+    copies = min(max(2, -(-4 * L2_BYTES // size)), 64)
+    sets = [tuple(t.clone() for t in inputs) for _ in range(copies)]
+    turn = [0]
+
+    def run():
+        turn[0] = (turn[0] + 1) % copies
+        return call(*sets[turn[0]])
+    return run
+
+
 def _gate_bwd_kernel(x, w, g):
     """K4 as the step runs it: the kernel, then the dw contraction from its
     planes; returns (dx, dw, mean, max)."""
@@ -181,45 +239,168 @@ def _gate_bwd_plain(x, w, g):
             x32.amax(1))
 
 
+def _rab_tail_params(c: int):
+    """Float32 parameters of one fused tail on the card, with live CLAM
+    hidden units (|W1| + 0.05) and gates away from saturation."""
+    hidden = max(c // 16, 1)
+    return (_randn((c, hidden), torch.float32, 11, scale=0.02).abs() + 0.05,
+            _randn((hidden, c), torch.float32, 12, scale=0.1),
+            _randn((1, 2, 7, 7), torch.float32, 13, scale=0.3),
+            _randn((c, c), torch.float32, 14, scale=0.5 / c ** 0.5),
+            _randn((c,), torch.float32, 15, scale=0.05))
+
+
+def _unfused_tail(params, dtype):
+    """The composition the fused tail replaces, as the unfused generator
+    runs it on the card: the pool kernel, the MLP, the gate kernel, cuDNN's
+    1x1 conv and the residual add, over the same weights."""
+    w1, w2, slam_w, fuse_w, fuse_b = params
+    c = fuse_w.shape[0]
+    la = LocalAttention(c).to("cuda")
+    with torch.no_grad():
+        la.ca.fc1.weight.copy_(w1.t()[:, :, None, None])
+        la.ca.fc2.weight.copy_(w2.t()[:, :, None, None])
+        la.sa.conv1.weight.copy_(slam_w)
+        la.conv.weight.copy_(fuse_w.t()[:, :, None, None])
+        la.conv.bias.copy_(fuse_b)
+    la.ca.to(dtype)
+    la.conv.to(dtype)
+
+    def run(t, x_res):
+        with torch.no_grad():
+            return la.tail(t, x_res)
+    return run
+
+
+def _sdpa_library(q, k, v, dout):
+    """(forward ms, backward ms, backends) of
+    ``F.scaled_dot_product_attention(q, k, v, scale=1.0)``, the one PyTorch
+    call that computes the SGAM's function (d_qk 8, d_v 64), and of its
+    autograd backward; ``backends`` says which of PyTorch's SDPA backends
+    take these inputs when asked for alone.  A yardstick only: the port
+    never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def heads(t):  # (B, N, d) -> (B, 1, N, d)
+        return t[:, None]
+
+    def forward():
+        return F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                              scale=1.0)
+
+    backends = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                forward()
+            torch.cuda.synchronize()
+            backends[backend.name] = "ran"
+        except RuntimeError:
+            backends[backend.name] = "refused"
+    iters = 10
+    for _ in range(3):
+        forward()
+    fwd_ms = _event_ms(lambda: [forward() for _ in range(iters)], iters)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*map(heads, leaves), scale=1.0)
+
+    def backward():
+        torch.autograd.grad(out, leaves, heads(dout), retain_graph=True)
+
+    for _ in range(3):
+        backward()
+    bwd_ms = _event_ms(lambda: [backward() for _ in range(iters)], iters)
+    return fwd_ms, bwd_ms, backends
+
+
 def _kernel_cases():
-    """(kernel, label, dtype, shape, run kernel, run plain): zero-argument
-    calls at the train step's shapes first, then the serving path's."""
+    """(kernel, label, dtype, shape, run kernel, run plain, bytes, flops,
+    extra): zero-argument calls at the train step's shapes first, then the
+    serving path's and the validation sweep's (one image at a time).
+    ``bytes`` counts each input read once and each output written once,
+    ``flops`` the operations of the function on these inputs; ``extra`` maps
+    a label to another zero-argument call timed beside the kernel (the
+    bytes-bound kernels with their inputs out of the L2, see :func:`_cold`;
+    the unfused composition; the library call is timed apart)."""
     w = _randn((1, 2, 7, 7), torch.float32, 1, scale=0.3)
     for dtype in (torch.float32, torch.bfloat16):
+        es = torch.finfo(dtype).bits // 8
         # the generator's gates, the discriminator's CBAM, a ragged tile
         for shape in ((16, 64, 54, 54), (16, 256, 27, 27), (3, 64, 27, 31)):
             x = _randn(shape, dtype, 2)
             g = _randn(shape, dtype, 6)
+            b, c, h, wd = shape
+            n, px = x.numel(), b * h * wd
             yield ("avg_max_pool", "", dtype, shape,
                    lambda x=x: pooling.avg_max_pool_cuda(x),
-                   lambda x=x: pooling.avg_max_pool_plain(x))
+                   lambda x=x: pooling.avg_max_pool_plain(x),
+                   (n + 2 * b * c) * es, 2 * n,
+                   {"cold_ms": _cold(pooling.avg_max_pool_cuda, x)})
             yield ("spatial_gate", "", dtype, shape,
                    lambda x=x: spatial_gate.spatial_gate_cuda(x, w),
-                   lambda x=x: spatial_gate.spatial_gate_plain(x, w))
+                   lambda x=x: spatial_gate.spatial_gate_plain(x, w),
+                   2 * n * es + 98 * 4, 3 * n + px * 2 * 98,
+                   {"cold_ms": _cold(
+                       lambda x: spatial_gate.spatial_gate_cuda(x, w), x)})
             if shape[0] == 16:
                 yield ("spatial_gate_bwd", "", dtype, shape,
                        lambda x=x, g=g: _gate_bwd_kernel(x, w, g),
-                       lambda x=x, g=g: _gate_bwd_plain(x, w, g))
-        # SGAM at the train step's batch, N = 54^2, then a ragged 27^2 and
-        # the serving record's batch of two
-        for b, n in ((16, 2916), (16, 729), (2, 2916)):
+                       lambda x=x, g=g: _gate_bwd_plain(x, w, g),
+                       3 * n * es + 2 * 98 * 4, 8 * n + px * 6 * 98,
+                       {"cold_ms": _cold(
+                           lambda x, g: _gate_bwd_kernel(x, w, g), x, g)})
+        # the fused RAB tail at the train step's, the serving request's and
+        # the validation sweep's shapes and a ragged one
+        for shape in ((16, 64, 54, 54), (4, 64, 54, 54), (1, 64, 54, 54),
+                      (3, 64, 27, 31)):
+            b, c, h, wd = shape
+            t = _randn(shape, dtype, 8)
+            x_res = _randn(shape, dtype, 9)
+            params = _rab_tail_params(c)
+            unfused = _unfused_tail(params, dtype)
+            n, px = t.numel(), b * h * wd
+            _check_rab_tail_maxima(
+                t, rab_tail.rab_tail_cuda(t, x_res, *params))
+            yield ("rab_tail", "", dtype, shape,
+                   lambda t=t, x_res=x_res, params=params:
+                   rab_tail.rab_tail_cuda(t, x_res, *params),
+                   lambda t=t, x_res=x_res, params=params:
+                   rab_tail.rab_tail_plain(t, x_res, *params),
+                   3 * n * es + 4 * (3 * px + 3 * b * c
+                                     + sum(p.numel() for p in params)),
+                   px * (2 * c * c + 8 * c + 2 * 98),
+                   {"composition_ms":
+                    lambda t=t, x_res=x_res, run=unfused: run(t, x_res),
+                    "cold_ms": _cold(
+                        lambda t, x_res, params=params:
+                        rab_tail.rab_tail_cuda(t, x_res, *params), t, x_res),
+                    "composition_cold_ms": _cold(unfused, t, x_res)})
+        # SGAM at the train step's batch, N = 54^2, then a ragged 27^2, the
+        # serving record's batch of two and the validation sweep's of one
+        for b, n in ((16, 2916), (16, 729), (2, 2916), (1, 2916)):
             q = _randn((b, n, 8), dtype, 3, scale=0.5)
             k = _randn((b, n, 8), dtype, 4, scale=0.5)
             v = _randn((b, n, 64), dtype, 5)
             dout = _randn((b, n, 64), dtype, 7)
             shape = (b, n, 8, 64)
+            fwd_bytes = b * n * (8 + 8 + 64 + 64) * es
+            fwd_flops = 2 * b * n * n * (8 + 64)
             yield ("position_attention", "", dtype, shape,
                    lambda q=q, k=k, v=v:
                    sgam_flash.position_attention_cuda(q, k, v),
                    lambda q=q, k=k, v=v:
-                   sgam_flash.position_attention_plain(q, k, v))
-            if b == 2:
+                   sgam_flash.position_attention_plain(q, k, v),
+                   fwd_bytes, fwd_flops, {})
+            if b != 16:  # forward only: served or swept under no-grad
                 continue
             yield ("position_attention", " +lse", dtype, shape,
                    lambda q=q, k=k, v=v: sgam_flash.position_attention_cuda(
                        q, k, v, with_lse=True)[0],
                    lambda q=q, k=k, v=v:
-                   sgam_flash.position_attention_plain(q, k, v))
+                   sgam_flash.position_attention_plain(q, k, v),
+                   fwd_bytes + b * n * 4, fwd_flops, {})
             out, lse = sgam_flash.position_attention_cuda(q, k, v,
                                                           with_lse=True)
             yield ("position_attention_bwd", "", dtype, shape,
@@ -227,15 +408,33 @@ def _kernel_cases():
                    sgam_flash.position_attention_bwd_cuda(q, k, v, out, dout,
                                                           lse),
                    lambda q=q, k=k, v=v, dout=dout:
-                   sgam_flash.position_attention_bwd_plain(q, k, v, dout))
+                   sgam_flash.position_attention_bwd_plain(q, k, v, dout),
+                   b * n * ((8 + 8 + 64) * 2 + 64 + 64) * es + b * n * 4,
+                   2 * b * n * n * (8 + 64 + 64 + 8 + 8), {})
+
+
+def _check_rab_tail_maxima(t: torch.Tensor, got: tuple) -> None:
+    """max_t is a plain maximum: exact.  max_u is the maximum of t * gate_c
+    with the kernel's own gate (its MLP and sigmoid round a few ulp apart
+    from torch's), so it must equal, bit for bit, the maximum of the
+    products taken from the kernel's gate_c: the backward finds the tied
+    maxima by that equality."""
+    _, gate_c, _, _, max_u, _, max_t = got
+    t32 = t.float()
+    if not torch.equal(max_t, t32.amax((2, 3))):
+        fail(f"rab_tail {t.dtype} {tuple(t.shape)}: max_t is not the max")
+    if not torch.equal(max_u, (t32 * gate_c[:, :, None, None]).amax(1)):
+        fail(f"rab_tail {t.dtype} {tuple(t.shape)}: max_u is not the max of "
+             "t * gate_c")
 
 
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns, per kernel, the
-    error and times at its first (train step, float32) case, and the K3
-    time with the log-sum-exp store."""
+    error, the times and the bound at its first (train step, float32) case,
+    and the K3 time with the log-sum-exp store."""
     record = {}
-    for name, label, dtype, shape, kernel, plain in _kernel_cases():
+    for (name, label, dtype, shape, kernel, plain, n_bytes, flops,
+         extra) in _kernel_cases():
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -258,19 +457,42 @@ def phase_kernels() -> dict:
         p2 = cuda_ms(plain)
         ms, eager_ms = ((a + b) / 2 for a, b in zip(k1, k2))
         plain_ms, plain_eager_ms = ((a + b) / 2 for a, b in zip(p1, p2))
+        extras = {key: cuda_ms(fn)[0] for key, fn in extra.items()}
+        byte_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        flop_ms = flops / PEAK_FLOPS[dtype] * 1e3
+        bound_ms = max(byte_ms, flop_ms)
+        bound_by = "bytes" if byte_ms >= flop_ms else "operations"
         print(f"kernel {name + label:<24} {str(dtype):<14} {str(shape):<18} "
               f"max_abs_err {max(errs):.3e} (of max|ref|: "
               f"{', '.join(f'{r:.2e}' for r in rels)}; tol "
               f"{TOL[dtype]:.0e})  device: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms; eager: kernel {eager_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)"
+              + "".join(f", {k} {v:.4f}" for k, v in extras.items())
+              + f"; eager: kernel {eager_ms:.4f} ms, plain "
               f"{plain_eager_ms:.4f} ms")
         if label:
             record[name].setdefault("ms_with_lse", ms)
         elif name not in record:
             record[name] = {"max_abs_err": max(errs), "ms": ms,
-                            "plain_ms": plain_ms, "eager_ms": eager_ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": None,
+                            "eager_ms": eager_ms,
                             "plain_eager_ms": plain_eager_ms,
-                            "dtype": str(dtype), "shape": list(shape)}
+                            "dtype": str(dtype), "shape": list(shape),
+                            **extras}
+
+    # the library yardstick of K3 and K5, at their first case's inputs
+    q = _randn((16, 2916, 8), torch.float32, 3, scale=0.5)
+    k = _randn((16, 2916, 8), torch.float32, 4, scale=0.5)
+    v = _randn((16, 2916, 64), torch.float32, 5)
+    dout = _randn((16, 2916, 64), torch.float32, 7)
+    fwd_ms, bwd_ms, backends = _sdpa_library(q, k, v, dout)
+    record["position_attention"]["library_ms"] = fwd_ms
+    record["position_attention_bwd"]["library_ms"] = bwd_ms
+    print(f"library scaled_dot_product_attention(scale=1.0) float32 "
+          f"(16, 2916, 8, 64): forward {fwd_ms:.4f} ms, autograd backward "
+          f"{bwd_ms:.4f} ms; backends asked for alone: {backends}")
     return record
 
 
@@ -302,6 +524,23 @@ def latency_ms(pred: Predictor, x: np.ndarray, iters: int = 10) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+def _n_gates(generator) -> int:
+    """Local attentions of a generator: one per RAB and one per group."""
+    return len(generator.res_groups) * (len(generator.res_groups[0].RG) + 1)
+
+
+def forward_launches(generator, forwards: int = 1) -> dict:
+    """Kernel launches of ``forwards`` no-grad generator forwards: per
+    local attention a pool (K1) and a gate (K2), or, fused, one RAB tail
+    (K6, which pools inside its own launch); the SGAM (K3) once."""
+    fused = generator.res_groups[0].rab_tail == "fused"
+    gates = forwards * _n_gates(generator)
+    return {"avg_max_pool": 0 if fused else gates,
+            "spatial_gate": 0 if fused else gates,
+            "position_attention": forwards, "spatial_gate_bwd": 0,
+            "position_attention_bwd": 0, "rab_tail": gates if fused else 0}
+
+
 def phase_serving(smi: str) -> dict:
     scale = 4
     model = create_generator("sradsgan", scale, seed=0)
@@ -309,7 +548,9 @@ def phase_serving(smi: str) -> dict:
         model.GAB_UP.ca.gamma.fill_(0.5)
         model.GAB_UP.sa.gamma.fill_(0.5)
     cpu_model = copy.deepcopy(model).eval()
-    n_gates = len(model.res_groups) * (len(model.res_groups[0].RG) + 1)
+    fused_model = create_generator("sradsgan", scale, seed=0,
+                                   rab_tail="fused")
+    fused_model.load_state_dict(model.state_dict())  # strict: the same tree
 
     rng = np.random.default_rng(0)
     requests = {
@@ -325,11 +566,8 @@ def phase_serving(smi: str) -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     print(f"serving path launches: {launches}")
-    forwards = 4  # one per request; the 25 tiles of 240x240 fit one call
-    expected = {"avg_max_pool": forwards * n_gates,
-                "spatial_gate": forwards * n_gates,
-                "position_attention": forwards, "spatial_gate_bwd": 0,
-                "position_attention_bwd": 0}
+    # one forward per request; the 25 tiles of 240x240 fit one call
+    expected = forward_launches(model, forwards=4)
     if launches != expected:
         fail(f"launch counts {launches} differ from the path's {expected}")
 
@@ -355,24 +593,49 @@ def phase_serving(smi: str) -> dict:
     if not err <= bound:
         fail("the card's output disagrees with the CPU plain path")
 
-    pred_bf16 = Predictor(model, scale, dtype=torch.bfloat16)
     batch = requests["batch4_54x54"]
+    fused_pred = Predictor(fused_model, scale)
+    reset_launches()
+    fused_out = fused_pred(batch)
+    torch.cuda.synchronize()
+    fused_launches = read_launches()
+    print(f"fused serving path launches: {fused_launches}")
+    if fused_launches != forward_launches(fused_model):
+        fail(f"fused launch counts {fused_launches} differ from the path's "
+             f"{forward_launches(fused_model)}")
+    ref = outs["batch4_54x54"]
+    err = float(np.abs(fused_out - ref).max())
+    bound = SLICE_TOL * float(np.abs(ref).max())
+    print(f"fused vs unfused on the card (4 x 54^2, f32): max|d| {err:.3e} "
+          f"<= {bound:.3e}")
+    if not (np.isfinite(fused_out).all() and err <= bound):
+        fail("the fused request disagrees with the unfused one")
+
+    pred_bf16 = Predictor(model, scale, dtype=torch.bfloat16)
+    fused_bf16 = Predictor(fused_model, scale, dtype=torch.bfloat16)
     out_bf16 = pred_bf16(batch)
-    if not np.isfinite(out_bf16).all():
+    fused_out_bf16 = fused_bf16(batch)
+    if not (np.isfinite(out_bf16).all() and np.isfinite(fused_out_bf16).all()):
         fail("bf16 output is not finite")
     db = psnr(out_bf16, outs["batch4_54x54"])
-    print(f"bf16 vs f32 on the batch of four: PSNR {db:.2f} dB "
-          "(peak = the f32 output's range)")
+    fused_db = psnr(fused_out_bf16, outs["batch4_54x54"])
+    print(f"bf16 vs f32 on the batch of four: PSNR {db:.2f} dB unfused, "
+          f"{fused_db:.2f} dB fused (peak = the f32 output's range)")
+    if not fused_db >= db - 3.0:
+        fail("the fused bf16 request is further than 3 dB behind the "
+             "unfused one")
 
     mpix = batch.shape[0] * (54 * scale) ** 2 / 1e6
-    serving = {"psnr_bf16_vs_f32_db": db}
-    for label, p in (("f32", pred), ("bf16", pred_bf16)):
+    serving = {"psnr_bf16_vs_f32_db": db, "fused_psnr_bf16_vs_f32_db": fused_db}
+    for label, p in (("f32", pred), ("fused_f32", fused_pred),
+                     ("bf16", pred_bf16), ("fused_bf16", fused_bf16)):
         ms = latency_ms(p, batch)
         serving[f"{label}_ms"] = ms
         serving[f"{label}_mp_per_s"] = mpix / (ms / 1e3)
         print(f"serving batch 4 x 54^2 -> 216^2 {label}: {ms:.2f} ms/request, "
               f"{mpix / (ms / 1e3):.3f} MP/s of output [{smi}]")
-    return {"launches": launches, "serving": serving}
+    return {"launches": launches, "fused_launches": fused_launches,
+            "serving": serving}
 
 
 def step_launches(trainer) -> dict:
@@ -385,15 +648,19 @@ def step_launches(trainer) -> dict:
     through D(sr) in the G step, the penalty's gradient (the inner
     backward), and in the D step's backward through D(hr), D(sr.detach())
     and, from the penalty's second order reaching the gate's output through
-    the BatchNorms after it, D(interpolates)."""
+    the BatchNorms after it, D(interpolates).  With fused RAB tails the
+    generator's pools and gates are one K6 launch each, whose backward
+    still runs K4 for its SLAM part."""
     g = trainer.generator
-    n_gates = len(g.res_groups) * (len(g.res_groups[0].RG) + 1)
+    n_gates = _n_gates(g)
+    fused = g.res_groups[0].rab_tail == "fused"
     d_forwards = 4
-    return {"avg_max_pool": n_gates + d_forwards,
-            "spatial_gate": n_gates + d_forwards,
+    return {"avg_max_pool": (0 if fused else n_gates) + d_forwards,
+            "spatial_gate": (0 if fused else n_gates) + d_forwards,
             "position_attention": 1,
             "spatial_gate_bwd": n_gates + 5,
-            "position_attention_bwd": 1}
+            "position_attention_bwd": 1,
+            "rab_tail": n_gates if fused else 0}
 
 
 def fan_in_init(model: torch.nn.Module, seed: int) -> None:
@@ -435,8 +702,9 @@ def zero_by_math(model: torch.nn.Module) -> set:
     return names
 
 
-def _fan_in_trainer(device: str, float64: bool = False):
-    trainer = make_trainer("f32", device=device)
+def _fan_in_trainer(device: str, float64: bool = False,
+                    rab_tail: str = "unfused"):
+    trainer = make_trainer("f32", device=device, rab_tail=rab_tail)
     for net in (trainer.generator, trainer.discriminator):
         fan_in_init(net, seed=3)
     if float64:
@@ -453,17 +721,46 @@ def _grad_errors(got, ref, skip) -> list:
                   reverse=True)
 
 
-def _cpu_step(batch, float64: bool):
-    trainer = _fan_in_trainer("cpu", float64)
+def _cpu_step(batch, float64: bool, rab_tail: str):
+    trainer = _fan_in_trainer("cpu", float64, rab_tail)
     t0 = time.perf_counter()
     metrics = trainer.train_step(batch, torch.Generator().manual_seed(7))
     return trainer, metrics, time.perf_counter() - t0
 
 
-def phase_train_correctness() -> dict:
+def _d_sensitivity(batch, size: float) -> tuple:
+    """(worst |change| over max |grad|, its name) of the card's D gradients
+    when every pixel of the unfused sr moves by +-``size`` of sr's largest,
+    the sign drawn from a seed: two D steps from the same weights, batch and
+    penalty weights, which differ in that perturbation alone."""
+    grads = []
+    for perturbed in (False, True):
+        trainer = _fan_in_trainer("cuda")
+        hr = trainer._to_device(batch["hr"])
+        sr = trainer._eval_sr(batch["lr"])
+        if perturbed:
+            sign = torch.randint(0, 2, sr.shape,
+                                 generator=torch.Generator().manual_seed(5))
+            sr = sr + (sign * 2 - 1).to(sr) * size * sr.abs().max()
+        trainer._d_step(hr, sr, torch.Generator().manual_seed(7), {})
+        grads.append({n: p.grad.cpu() for n, p in
+                      trainer.discriminator.named_parameters()
+                      if n not in zero_by_math(trainer.discriminator)})
+    return max((_max_rel(g, grads[0][n]), n) for n, g in grads[1].items())
+
+
+def phase_train_correctness(rab_tail: str, unfused_card=None) -> dict:
     """One float32 step on the card against the CPU plain path's step in
-    float64, from the same weights, batch and penalty weights; returns the
-    step's launch counts and the gradient report.
+    float64, from the same weights, batch and penalty weights, with the
+    RAB tails unfused or fused on both sides; returns the step's launch
+    counts, the gradient report and the card's own sr and D gradients.
+
+    ``unfused_card`` is that last item of the unfused run.  The D's code is
+    the same fused or not and the tails reach it through sr alone, so the
+    fused run also prints how far its sr and its D gradients lie from the
+    unfused card's: what a difference in sr's last bits does to the D's
+    gradients, apart from any reference, and beside it what a random
+    perturbation of sr of that size does to them (:func:`_d_sensitivity`).
 
     The step's gradients are ill-conditioned in places (sums that cancel,
     BatchNorm over the penalty's second order), so float32 rounding alone
@@ -472,19 +769,20 @@ def phase_train_correctness() -> dict:
     control: it must pass the same fixed bound, or the bound says nothing
     about the card."""
     batch = make_batch(batch=2, seed=1)
-    card = _fan_in_trainer("cuda")
+    card = _fan_in_trainer("cuda", rab_tail=rab_tail)
+    mine = {"sr": card._eval_sr(batch["lr"]).cpu()}
     reset_launches()
     got = card.train_step(batch, torch.Generator().manual_seed(7))
     torch.cuda.synchronize()
     launches = read_launches()
     want_launches = step_launches(card)
-    print(f"train step launches (batch 2, f32): {launches}")
+    print(f"train step launches (batch 2, f32, {rab_tail}): {launches}")
     if launches != want_launches:
         fail(f"train step launch counts {launches} differ from the "
              f"module structure's {want_launches}")
 
-    ref, want, ref_s = _cpu_step(batch, float64=True)
-    control, control_metrics, control_s = _cpu_step(batch, float64=False)
+    ref, want, ref_s = _cpu_step(batch, True, rab_tail)
+    control, control_metrics, control_s = _cpu_step(batch, False, rab_tail)
     for key in ("loss_G", "loss_D", "pixel", "content", "adv_g"):
         w = float(want[key])
         for side, metrics in (("card", got), ("CPU float32", control_metrics)):
@@ -505,15 +803,19 @@ def phase_train_correctness() -> dict:
         errs = _grad_errors(model, reference, zero)
         ctrl = _grad_errors(getattr(control, net), reference, zero)
         tol = GRAD_TOL[net]
+        control_at_worst = dict((n, e) for e, n in ctrl)[errs[0][1]]
         report[net] = {"worst": errs[0][1], "err": errs[0][0],
                        "control_worst": ctrl[0][1], "control_err": ctrl[0][0],
+                       "control_at_worst": control_at_worst,
                        "tol": tol, "zero_by_math_worst": zero_worst,
                        "tensors": len(errs)}
-        print(f"train step {net} gradients against the CPU float64 step: "
+        print(f"train step ({rab_tail}) {net} gradients against the CPU "
+              "float64 step: "
               f"{len(errs)} tensors; card worst of max|ref|: "
               + ", ".join(f"{n} {e:.3e}" for e, n in errs[:4])
               + "; CPU float32 (control) worst: "
               + ", ".join(f"{n} {e:.3e}" for e, n in ctrl[:2])
+              + f", at {errs[0][1]} {control_at_worst:.3e}"
               + f"; tol {tol:.0e}; {len(zero)} zero by the math, card's "
               f"largest {zero_worst:.3e} of the network's largest "
               f"(tol {ZERO_TOL:.0e})")
@@ -533,47 +835,210 @@ def phase_train_correctness() -> dict:
             faults.append(f"the SGAM gradient {key} is zero")
     print(f"CPU steps took {ref_s:.1f} s (float64) and {control_s:.1f} s "
           "(float32)")
+    mine["d_grads"] = {n: p.grad.cpu() for n, p in
+                       card.discriminator.named_parameters()}
+    if unfused_card is not None:
+        sr_err = _max_rel(mine["sr"], unfused_card["sr"])
+        skip = zero_by_math(card.discriminator)
+        moved = sorted(((_max_rel(g, unfused_card["d_grads"][n]), n)
+                        for n, g in mine["d_grads"].items() if n not in skip),
+                       reverse=True)
+        worst = report["discriminator"]["worst"]
+        report["vs_unfused_card"] = {
+            "sr": sr_err, "d_worst": moved[0][1], "d_err": moved[0][0],
+            "d_at_worst": dict((n, e) for e, n in moved)[worst]}
+        print(f"fused card against unfused card: sr {sr_err:.3e} of its "
+              "max; D gradients of max|unfused|, worst: "
+              + ", ".join(f"{n} {e:.3e}" for e, n in moved[:3])
+              + f", at {worst} {report['vs_unfused_card']['d_at_worst']:.3e}")
+        noise_err, noise_at = _d_sensitivity(batch, sr_err)
+        report["vs_unfused_card"].update(noise_err=noise_err,
+                                         noise_at=noise_at)
+        print(f"unfused card, sr moved by +-{sr_err:.3e} of its max at "
+              f"random: D gradients move by {noise_err:.3e} of their max "
+              f"({noise_at})")
+        if not sr_err <= SLICE_TOL:
+            faults.append(f"the fused sr is {sr_err:.3e} of its max off the "
+                          "unfused card's")
     if faults:
         fail("; ".join(faults))
-    return {"launches": launches, "grad_check": report}
+    return {"launches": launches, "grad_check": report, "card": mine}
+
+
+def phase_validation_batch() -> dict:
+    """One batch of the validation sweep as ``cli train`` runs it (one
+    216^2 synthetic test image, so the fused tail sees (1, 64, 54, 54) and
+    the SGAM B = 1): the fused trainer's sr against the unfused trainer's
+    on the card, from the same weights, in float32 (SLICE_TOL) and in the
+    mixed precision (PSNR against the float32 sr no more than 3 dB behind
+    the unfused one's), with the forward's exact launch counts and finite
+    metrics."""
+    out, ref = {}, None
+    for precision in ("f32", "bf16"):
+        srs = {}
+        for rab in ("unfused", "fused"):
+            trainer = make_trainer(precision, rab_tail=rab)
+            data = trainer.cfg.data
+            data.synthetic = True
+            batch = next(iter(DataLoader(
+                build_test_dataset(data, trainer.cfg.scale),
+                data.test_batch_size, shuffle=False, drop_last=False,
+                num_workers=1)))
+            if batch["lr"].shape != (1, 54, 54, 3):
+                fail(f"validation batch lr is {batch['lr'].shape}")
+            reset_launches()
+            srs[rab] = trainer._eval_sr(batch["lr"]).cpu().numpy()
+            launches = read_launches()
+            if launches != forward_launches(trainer.generator):
+                fail(f"validation forward ({precision}, {rab}) launches "
+                     f"{launches} differ from the path's "
+                     f"{forward_launches(trainer.generator)}")
+            metrics = {k: float(v) for k, v in
+                       trainer._eval_step(batch).items()}
+            if not np.isfinite(list(metrics.values())).all():
+                fail(f"validation metrics ({precision}, {rab}): {metrics}")
+            out[f"{precision}_{rab}_psnr"] = metrics["psnr"]
+            del trainer
+        if precision == "f32":
+            ref = srs["unfused"]
+            err = float(np.abs(srs["fused"] - ref).max())
+            bound = SLICE_TOL * float(np.abs(ref).max())
+            out["f32_max_abs_err"] = err
+            print(f"validation batch 1 x 54^2, f32: fused vs unfused sr on "
+                  f"the card max|d| {err:.3e} <= {bound:.3e}; PSNR to hr "
+                  f"{out['f32_fused_psnr']:.4f} / "
+                  f"{out['f32_unfused_psnr']:.4f} dB")
+            if not err <= bound:
+                fail("the fused validation batch disagrees with the unfused")
+        else:
+            db = {rab: psnr(srs[rab], ref) for rab in srs}
+            out["bf16_vs_f32_db"] = db
+            print(f"validation batch 1 x 54^2, bf16 vs the f32 sr: PSNR "
+                  f"{db['fused']:.2f} dB fused, {db['unfused']:.2f} dB "
+                  f"unfused; PSNR to hr {out['bf16_fused_psnr']:.4f} / "
+                  f"{out['bf16_unfused_psnr']:.4f} dB")
+            if not db["fused"] >= db["unfused"] - 3.0:
+                fail("the fused bf16 validation batch is further than 3 dB "
+                     "behind the unfused one")
+    return out
 
 
 def phase_train_timing(smi: str) -> dict:
     """ms per step and MP/s of HR output at batch 16, float32 and mixed
-    precision; returns the timings and the first f32 step's launches."""
+    precision, RAB tails unfused and fused in turn; returns the timings and
+    each variant's first-step launches."""
     batch = make_batch()
     mpix = 16 * 216 * 216 / 1e6
     out = {}
     for precision in ("f32", "bf16"):
-        trainer = make_trainer(precision)
-        reset_launches()
-        metrics = trainer.train_step(batch)
-        torch.cuda.synchronize()
-        launches = read_launches()
-        if launches != step_launches(trainer):
-            fail(f"{precision} train step launches {launches} differ from "
-                 f"{step_launches(trainer)}")
-        out[f"launches_{precision}"] = launches
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        steps = 5
-        t0 = time.perf_counter()
-        for _ in range(steps):
+        for rab in ("unfused", "fused"):
+            label = precision if rab == "unfused" else f"fused_{precision}"
+            trainer = make_trainer(precision, rab_tail=rab)
+            reset_launches()
             metrics = trainer.train_step(batch)
-        losses = {k: float(v) for k, v in metrics.items()}  # waits
-        ms = (time.perf_counter() - t0) / steps * 1e3
-        if not np.isfinite(list(losses.values())).all():
-            fail(f"{precision} train step losses are not finite: {losses}")
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        out[f"{precision}_ms_per_step"] = ms
-        out[f"{precision}_mp_per_s"] = mpix / (ms / 1e3)
-        out[f"{precision}_peak_gib"] = peak
-        print(f"train step batch 16 x 54^2 -> 216^2 {precision}: "
-              f"{ms:.2f} ms/step, {mpix / (ms / 1e3):.3f} MP/s of HR output, "
-              f"peak {peak:.2f} GiB; losses {losses} [{smi}]")
-        del trainer
+            torch.cuda.synchronize()
+            launches = read_launches()
+            if launches != step_launches(trainer):
+                fail(f"{label} train step launches {launches} differ from "
+                     f"{step_launches(trainer)}")
+            out[f"launches_{label}"] = launches
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = 5
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                metrics = trainer.train_step(batch)
+            losses = {k: float(v) for k, v in metrics.items()}  # waits
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            if not np.isfinite(list(losses.values())).all():
+                fail(f"{label} train step losses are not finite: {losses}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            out[f"{label}_ms_per_step"] = ms
+            out[f"{label}_mp_per_s"] = mpix / (ms / 1e3)
+            out[f"{label}_peak_gib"] = peak
+            print(f"train step batch 16 x 54^2 -> 216^2 {label}: "
+                  f"{ms:.2f} ms/step, {mpix / (ms / 1e3):.3f} MP/s of HR "
+                  f"output, peak {peak:.2f} GiB; losses {losses} [{smi}]")
+            del trainer, metrics
     return out
+
+
+class _Tee(io.TextIOBase):
+    """Pass writes on to a stream and keep a copy."""
+
+    def __init__(self, stream):
+        self.stream = stream
+        self.lines = io.StringIO()
+
+    def write(self, text):
+        self.lines.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+CLI_EPOCHS = 2
+
+
+def phase_cli_train(smi: str) -> dict:
+    """The training entry point at its default sizes, fused, for two
+    epochs of the synthetic set and their validation sweeps (the second
+    epoch reaches step 50, the first line of loss_log.txt)."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as save_dir:
+        argv = ["train", "--model", "sradsgan", "--scale", "4", "--data",
+                "synthetic", "--model-kwargs", '{"rab_tail": "fused"}',
+                "--no-final-eval", "--epochs", str(CLI_EPOCHS), "--save-dir",
+                save_dir]
+        print("python -m sradsgan_tpu_torch.cli " + " ".join(argv))
+        tee = _Tee(sys.stdout)
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        if rc != 0:
+            fail(f"cli train exited with {rc}")
+        run_dir = os.path.join(save_dir, "SRADSGAN_x4")
+        for name in ("ckpt_best.pt", f"ckpt_epoch_{CLI_EPOCHS - 1}.pt",
+                     "logs/loss_log.txt", "logs/val_log.txt"):
+            path = os.path.join(run_dir, name)
+            if not (os.path.exists(path) and os.path.getsize(path) > 0):
+                fail(f"cli train did not write {name}")
+        with open(os.path.join(run_dir, "logs/val_log.txt")) as f:
+            val_lines = len(f.readlines())
+    result = json.loads(tee.lines.getvalue().strip().splitlines()[-1])
+    final, feed = result["final"], result["feed"]
+    if (set(final) != {"psnr", "ssim", "ergas", "bc_psnr", "bc_ssim"}
+            or not np.isfinite(list(final.values())).all()):
+        fail(f"cli train's final metrics are not finite: {final}")
+    if val_lines != CLI_EPOCHS:
+        fail(f"val_log.txt has {val_lines} lines for {CLI_EPOCHS} epochs")
+    # the loop's structure at the default sizes: 512 images in batches of
+    # 16, a validation sweep of 64 images one at a time after each epoch
+    steps = CLI_EPOCHS * (512 // 16)
+    val_forwards = CLI_EPOCHS * 64
+    gates = 12 * (3 + 1)
+    expected = {"avg_max_pool": 4 * steps, "spatial_gate": 4 * steps,
+                "position_attention": steps + val_forwards,
+                "spatial_gate_bwd": (gates + 5) * steps,
+                "position_attention_bwd": steps,
+                "rab_tail": gates * (steps + val_forwards)}
+    print(f"cli train launches: {launches}")
+    if launches != expected:
+        fail(f"cli train launch counts {launches} differ from the loop's "
+             f"{expected}")
+    print(f"cli train: {CLI_EPOCHS} epochs of {512 // 16} steps with their "
+          f"validation sweeps in {seconds:.1f} s; last epoch "
+          f"{feed['epoch_s']:.2f} s, of which the loop waited on the data "
+          f"feed {feed['feed_wait_s']:.3f} s (share "
+          f"{feed['feed_share']:.4f}); final {final} [{smi}]")
+    return {"launches": launches, "seconds": seconds, "final": final,
+            "feed": feed}
 
 
 def main() -> int:
@@ -585,21 +1050,37 @@ def main() -> int:
     phase_build()
     record = phase_kernels()
     serving = phase_serving(smi)
-    correctness = phase_train_correctness()
+    correctness = {"unfused": phase_train_correctness("unfused")}
+    correctness["fused"] = phase_train_correctness(
+        "fused", correctness["unfused"].pop("card"))
+    validation = phase_validation_batch()
     timing = phase_train_timing(smi)
+    cli_train = phase_cli_train(smi)
+    paths = {"serving": serving["launches"],
+             "serving_fused": serving["fused_launches"],
+             **{f"train_{k[len('launches_'):]}": v
+                for k, v in timing.items() if k.startswith("launches_")},
+             "cli_train_fused": cli_train["launches"]}
+    never = [name for name in KERNELS
+             if not any(path[name] for path in paths.values())]
+    idle = [name for name in KERNELS if not cli_train["launches"][name]]
+    if never or idle:
+        fail(f"kernels never launched on any path: {never}; not launched by "
+             f"the training entry point: {idle}")
     kernels = [{"name": name, "route": "cuda", "source": spec["source"],
                 "replaces": spec["replaces"],
-                "launches": timing["launches_f32"][name],
-                "launches_by_path": {
-                    "serving": serving["launches"][name],
-                    "train_f32": timing["launches_f32"][name],
-                    "train_bf16": timing["launches_bf16"][name]},
+                "launches": cli_train["launches"][name],
+                "launches_by_path": {k: v[name] for k, v in paths.items()},
                 **record[name]}
                for name, spec in KERNELS.items()]
     print(json.dumps({"kernels": kernels, "serving": serving["serving"],
                       "train": {k: v for k, v in timing.items()
                                 if not k.startswith("launches")},
-                      "train_grad_check": correctness["grad_check"],
+                      "train_grad_check": {rab: c["grad_check"] for rab, c
+                                           in correctness.items()},
+                      "validation_batch": validation,
+                      "cli_train": {k: v for k, v in cli_train.items()
+                                    if k != "launches"},
                       "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,18 @@
 """Command-line interface of the port.
 
+    python -m sradsgan_tpu_torch.cli train --model sradsgan --scale 4 \\
+        --data synthetic --no-final-eval [--model-kwargs '{"rab_tail": "fused"}']
     python -m sradsgan_tpu_torch.cli infer --model sradsgan --scale 4 \\
         --image scene.tif --weights generator.npz --device cuda
     python -m sradsgan_tpu_torch.cli list-models
+
+``train`` takes the flags of ``python -m sradsgan_tpu.cli train`` plus
+``--device``: it archives a stale run directory (unless ``--resume``),
+builds the ``Trainer``, runs its epoch loop (``--steps`` stops after N
+steps instead) and prints the final metrics and the data feed's share of
+the last epoch as one JSON line.  The by-class evaluation that the JAX
+command runs after training is not ported yet, so ``train`` asks for
+``--no-final-eval`` and says so before any training starts.
 
 ``infer`` takes the flags of ``python -m sradsgan_tpu.cli infer``, so a JAX
 command line parses unchanged, plus ``--weights`` (JAX generator params as
@@ -20,9 +30,9 @@ import sys
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
-    """The JAX CLI's common flags; ``infer`` reads --model, --scale and
-    --model-kwargs, the rest select training data and are accepted only so
-    that a JAX command line parses."""
+    """The JAX CLI's common flags.  ``infer`` reads --model, --scale and
+    --model-kwargs and accepts the rest only so that a JAX command line
+    parses; ``train`` reads them all."""
     p.add_argument("--model", default="sradsgan")
     p.add_argument("--scale", type=int, default=4)
     p.add_argument("--data-dir", default="data")
@@ -38,6 +48,65 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         '\'{"base_filters": 16}\'')
     p.add_argument("--lpips", action="store_true")
     p.add_argument("--config", help="JSON TrainConfig overriding flags")
+
+
+def _build_cfg(args):
+    from sradsgan_tpu_torch.config import load_config
+    from sradsgan_tpu_torch.models import config_for_model
+
+    if args.config:
+        return load_config(args.config)
+    cfg = config_for_model(args.model, args.scale)
+    cfg.data.data_dir = args.data_dir
+    cfg.data.test_dataset = args.test_dataset
+    cfg.data.synthetic = args.data == "synthetic"
+    cfg.data.crop_size = args.crop_size
+    cfg.data.test_crop_size = args.crop_size
+    cfg.data.batch_size = args.batch_size
+    cfg.save_dir = args.save_dir
+    cfg.bf16 = not args.no_bf16
+    cfg.val_lpips = args.lpips
+    if args.model_kwargs:
+        cfg.model_kwargs = json.loads(args.model_kwargs)
+    return cfg
+
+
+def _archive_stale_dir(path: str) -> None:
+    """Rename an existing run dir to ``{path}_archived_{timestamp}``, so
+    that a fresh run never mixes its outputs with a stale one's."""
+    if os.path.isdir(path) and os.listdir(path):
+        import datetime
+        stamp = datetime.datetime.now().strftime("%y%m%d-%H%M%S")
+        new_name = f"{path}_archived_{stamp}"
+        print(f"run dir exists, renaming it to [{new_name}]",
+              file=sys.stderr)
+        os.rename(path, new_name)
+
+
+def cmd_train(args) -> int:
+    if not args.no_final_eval:
+        raise SystemExit(
+            "train: the final by-class evaluation (evaluation/validate.py) "
+            "is not ported to PyTorch yet; pass --no-final-eval (nothing "
+            "was trained)")
+    from sradsgan_tpu_torch.train.trainer import Trainer
+
+    cfg = _build_cfg(args)
+    if args.epochs is not None:
+        cfg.num_epochs = args.epochs
+    if args.init_from:
+        cfg.init_from = args.init_from
+    if not args.resume:
+        _archive_stale_dir(cfg.model_dir)
+    trainer = Trainer(cfg, device=args.device)
+    if args.resume:
+        trainer.load_checkpoint(args.resume)
+    metrics = trainer.train(num_steps=args.steps)
+    feed = dict(trainer.feed_stats)
+    if feed.get("epoch_s"):
+        feed["feed_share"] = feed["feed_wait_s"] / feed["epoch_s"]
+    print(json.dumps({"final": metrics, "feed": feed}))
+    return 0
 
 
 def cmd_infer(args) -> int:
@@ -92,6 +161,17 @@ def cmd_list_models(_args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="sradsgan_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("train", help="train a model")
+    _add_common(p)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--steps", type=int, default=None,
+                   help="stop after N optimizer steps (smoke runs)")
+    p.add_argument("--init-from", help="chain-training checkpoint")
+    p.add_argument("--resume", help="resume from a checkpoint path")
+    p.add_argument("--no-final-eval", action="store_true")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("infer", help="single-image SR (mfe_test_single)")
     _add_common(p)

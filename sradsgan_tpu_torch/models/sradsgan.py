@@ -45,28 +45,30 @@ class RAB(LocalAttention):
     """Residual attention block: 3x3 to 4C, lrelu(0.2), 3x3 back to C, then
     CLAM + SLAM + 1x1 fuse, plus the block input."""
 
-    def __init__(self, features: int = 64):
-        super().__init__(features)
+    def __init__(self, features: int = 64, rab_tail: str = "unfused"):
+        super().__init__(features, rab_tail)
         self.conv1 = nn.Conv2d(features, 4 * features, 3, padding=1)
         self.conv2 = nn.Conv2d(4 * features, features, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.conv2(F.leaky_relu(self.conv1(x), 0.2))
-        return super().forward(out) + x
+        return self.tail(out, x)
 
 
 class ResGroup(LocalAttention):
     """``n_blocks`` RABs (``RG``), group-level local attention, skip."""
 
-    def __init__(self, features: int = 64, n_blocks: int = 3):
-        super().__init__(features)
-        self.RG = nn.ModuleList(RAB(features) for _ in range(n_blocks))
+    def __init__(self, features: int = 64, n_blocks: int = 3,
+                 rab_tail: str = "unfused"):
+        super().__init__(features, rab_tail)
+        self.RG = nn.ModuleList(RAB(features, rab_tail)
+                                for _ in range(n_blocks))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = x
         for rab in self.RG:
             out = rab(out)
-        return super().forward(out) + x
+        return self.tail(out, x)
 
 
 class GABUp(GlobalAttention):
@@ -86,20 +88,22 @@ class SRADSGANGenerator(nn.Module):
     Weights are drawn from ``torch.Generator().manual_seed(seed)`` on the
     CPU, as the JAX package inits them: conv and MLP kernels normal(0.02),
     biases and the attention gains ``gamma`` zero; then the module moves to
-    ``device``.
+    ``device``.  ``rab_tail="fused"`` runs the 48 RAB and group tails
+    (CLAM + SLAM + 1x1 fuse + residual) in the fused RAB-tail op; the
+    weights and the ``state_dict`` are the same either way.
     """
 
     def __init__(self, scale: int = 4, num_channels: int = 3,
                  base_filters: int = 64, n_groups: int = 12,
-                 n_blocks: int = 3, *, seed: int = 0,
-                 device: torch.device | str = "cpu"):
+                 n_blocks: int = 3, rab_tail: str = "unfused", *,
+                 seed: int = 0, device: torch.device | str = "cpu"):
         super().__init__()
         f = base_filters
         with torch.device("meta"):  # skip torch's default init
             self.conv1 = ConvBlock(num_channels, f, activation="lrelu01")
             self.MSB = MSB(num_channels, f)
             self.res_groups = nn.ModuleList(
-                ResGroup(f, n_blocks) for _ in range(n_groups))
+                ResGroup(f, n_blocks, rab_tail) for _ in range(n_groups))
             self.GAB_UP = GABUp(f, scale)
             self.conv3 = ConvBlock(f, num_channels)
         self.to_empty(device="cpu")

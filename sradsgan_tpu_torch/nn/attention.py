@@ -6,7 +6,9 @@ SRADSGAN generator uses:
 - :class:`ChannelGate`, the CLAM: sigmoid(MLP(avg) + MLP(max)) * x, the two
   pools from the fused pool kernel, one MLP pass over both stacked;
 - :class:`SpatialGate`, the SLAM: the spatial-gate kernel;
-- :class:`LocalAttention`: CLAM then SLAM then a 1x1 fuse conv ('CA-SA');
+- :class:`LocalAttention`: CLAM then SLAM then a 1x1 fuse conv ('CA-SA'),
+  or, with ``rab_tail="fused"``, the whole tail with its residual add in
+  the fused RAB-tail op (same parameters, same ``state_dict``);
 - :class:`SpatialSelfAttention`, the SGAM: the position-attention kernel;
 - :class:`ChannelSelfAttention`, the CGAM: a Gram matrix softmaxed over
   ``max(energy) - energy`` in float32;
@@ -25,6 +27,7 @@ from torch import nn
 
 from sradsgan_tpu_torch.ops import plain_dtype
 from sradsgan_tpu_torch.ops.pooling import avg_max_pool
+from sradsgan_tpu_torch.ops.rab_tail import fused_rab_tail
 from sradsgan_tpu_torch.ops.sgam_flash import position_attention
 from sradsgan_tpu_torch.ops.spatial_gate import KERNEL_SIZE, spatial_gate
 
@@ -60,21 +63,46 @@ class SpatialGate(nn.Module):
         return spatial_gate(x, self.conv1.weight)
 
 
+RAB_TAILS = ("unfused", "fused")
+
+
 class LocalAttention(nn.Module):
     """'CA-SA' local attention with its 1x1 fuse conv: conv(sa(ca(x))).
 
     RAB and ResGroup subclass it, so that ``ca``, ``sa`` and ``conv`` sit
-    beside their own convs as in the reference's ``state_dict``.
+    beside their own convs as in the reference's ``state_dict``.  They end
+    in :meth:`tail`, which adds the residual; ``rab_tail="fused"`` sends the
+    tail through the fused RAB-tail op (counterpart of the JAX package's
+    ``FusedCASATail``) over the very same parameters, so a ``state_dict``
+    loads into either formulation.
     """
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, rab_tail: str = "unfused"):
         super().__init__()
+        if rab_tail not in RAB_TAILS:
+            raise ValueError(f"rab_tail must be one of {RAB_TAILS}, got "
+                             f"{rab_tail!r}")
+        self.rab_tail = rab_tail
         self.ca = ChannelGate(channels)
         self.sa = SpatialGate()
         self.conv = nn.Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(self.sa(self.ca(x)))
+
+    def tail(self, t: torch.Tensor, x_res: torch.Tensor) -> torch.Tensor:
+        """conv(sa(ca(t))) + x_res."""
+        if self.rab_tail == "unfused":
+            return LocalAttention.forward(self, t) + x_res
+        # the op takes float32 parameters: w1 (C, hidden), w2 (hidden, C),
+        # W_fuse (C_in, C_out); activations keep their type
+        return fused_rab_tail(
+            t.contiguous(), x_res.to(t.dtype).contiguous(),
+            self.ca.fc1.weight.flatten(1).t().float().contiguous(),
+            self.ca.fc2.weight.flatten(1).t().float().contiguous(),
+            self.sa.conv1.weight.float(),
+            self.conv.weight.flatten(1).t().float().contiguous(),
+            self.conv.bias.float())
 
 
 class SpatialSelfAttention(nn.Module):

@@ -1,5 +1,5 @@
 """Tensor ops of the port; each hand-written kernel sits beside its plain
-PyTorch version (pooling, spatial_gate, sgam_flash)."""
+PyTorch version (pooling, spatial_gate, sgam_flash, rab_tail)."""
 
 import torch
 

@@ -39,7 +39,9 @@ class Predictor:
     """Batched SR inference with a fixed input-shape bucket set.
 
     ``model`` is moved to ``device`` (in place); a bf16 predictor runs a
-    bf16 copy of it.
+    bf16 copy of it.  It serves the model as it was built: a generator
+    made with ``create_generator(..., rab_tail="fused")`` runs its fused
+    RAB tails.
     """
 
     def __init__(self, model: nn.Module, scale: int,

@@ -1,6 +1,7 @@
 """Where the time of one serving request goes on the card.
 
     python -m sradsgan_tpu_torch.tools.profile_serving [--dtype bfloat16]
+        [--rab-tail fused]
 
 Builds the full-width SRADSGAN x4 generator (seeded random weights), warms a
 ``serving.Predictor`` up on a batch of four 54^2 requests (the request
@@ -28,6 +29,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="profile_serving")
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32")
+    p.add_argument("--rab-tail", choices=["unfused", "fused"],
+                   default="unfused")
     args = p.parse_args(argv)
     batch, size, iters = 4, 54, 5
     if not torch.cuda.is_available():
@@ -35,7 +38,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    pred = Predictor(create_generator("sradsgan", 4, seed=0), 4,
+    pred = Predictor(create_generator("sradsgan", 4, seed=0,
+                                      rab_tail=args.rab_tail), 4,
                      dtype=getattr(torch, args.dtype))
     x = np.random.default_rng(0).random((batch, size, size, 3),
                                         dtype=np.float32)
@@ -55,7 +59,7 @@ def main(argv=None) -> int:
                       and e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda row: -row[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
-    print(f"{batch} x {size}^2 {args.dtype}: "
+    print(f"{batch} x {size}^2 {args.dtype}, RAB tail {args.rab_tail}: "
           f"{wall_ms / iters:.3f} ms/request wall, device busy "
           f"{busy_ms / iters:.3f} ms/request "
           f"({100 * busy_ms / wall_ms:.1f}% of the window)")

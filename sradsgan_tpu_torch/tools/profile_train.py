@@ -1,6 +1,7 @@
 """Where the time of one train step goes on the card.
 
     python -m sradsgan_tpu_torch.tools.profile_train [--precision bf16]
+        [--rab-tail fused]
 
 Builds the full-width SRADSGAN x4 WGAN-GP trainer (12 groups x 3 RABs x 64
 filters, the CBAM patch discriminator, the VGG19 content term; seeded random
@@ -29,11 +30,13 @@ from sradsgan_tpu_torch.train.trainer import Trainer
 BATCH, LR_SIZE, SCALE = 16, 54, 4
 
 
-def make_trainer(precision: str, device: str = "cuda") -> Trainer:
+def make_trainer(precision: str, device: str = "cuda",
+                 rab_tail: str = "unfused") -> Trainer:
     """The flagship trainer, seed 0, attention gains 0.5.  Weights depend on
-    the seed alone, not on the device."""
+    the seed alone, not on the device or the RAB tail's formulation."""
     bf16 = precision == "bf16"
-    cfg = config_for_model("sradsgan", SCALE, bf16=bf16, d_bf16=bf16)
+    cfg = config_for_model("sradsgan", SCALE, bf16=bf16, d_bf16=bf16,
+                           model_kwargs={"rab_tail": rab_tail})
     trainer = Trainer(cfg, device=device)
     with torch.no_grad():
         trainer.generator.GAB_UP.ca.gamma.fill_(0.5)
@@ -52,13 +55,15 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="profile_train")
     p.add_argument("--precision", choices=["f32", "bf16"], default="f32")
     p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--rab-tail", choices=["unfused", "fused"],
+                   default="unfused")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    trainer = make_trainer(args.precision)
+    trainer = make_trainer(args.precision, rab_tail=args.rab_tail)
     batch = make_batch()
     for _ in range(3):
         trainer.train_step(batch)
@@ -82,8 +87,9 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     print(f"train step {BATCH} x {LR_SIZE}^2 -> {LR_SIZE * SCALE}^2 "
-          f"{args.precision}: {wall_ms / n:.3f} ms/step wall, device busy "
-          f"{busy_ms / n:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}% of "
+          f"{args.precision}, RAB tail {args.rab_tail}: {wall_ms / n:.3f} "
+          f"ms/step wall, device busy {busy_ms / n:.3f} ms/step "
+          f"({100 * busy_ms / wall_ms:.1f}% of "
           f"the window) [{card}]")
     for name, ms, count in kernels[:25]:
         print(f"{ms / n:9.3f} ms/step {100 * ms / busy_ms:5.1f}%"

@@ -1,7 +1,8 @@
-"""The generator + discriminator WGAN-GP train step in PyTorch.
+"""The generator + discriminator WGAN-GP trainer in PyTorch: the train step,
+the validation sweep and the epoch loop with plateau backtracking.
 
-Counterpart of ``sradsgan_tpu/train/trainer.py:Trainer._train_step``, for
-the models of the port's registry (``models/__init__.py``).  One step:
+Counterpart of ``sradsgan_tpu/train/trainer.py:Trainer``, for the models of
+the port's registry (``models/__init__.py``).  One step:
 
 - **G step.** ``sr = G(lr)``; loss = ``w_pixel * pixel(sr, hr)`` + ``w_content
   * pixel(VGG(sr), VGG(hr))`` (the HR features carry no gradient) +
@@ -26,28 +27,66 @@ inside the kernels' ops.  A CPU trainer whose networks are cast with
 ``.double()`` takes the whole step in float64, the reference that
 ``chip_smoke.py`` holds the card's float32 step to.
 
-Batches are dicts of NHWC float32 numpy arrays in [0, 1], ``lr`` and
-``hr``, as ``bench.py`` feeds the JAX trainer.  The data feed, validation,
-the epoch loop with plateau backtracking and chain initialization are not
-ported yet (ROADMAP.md, Queue 1).
+A step takes a batch as a dict of ``lr`` and ``hr`` in [0, 1]: NHWC float32
+numpy arrays, as ``bench.py`` feeds the JAX trainer, or the NCHW tensors the
+data feed (``data/loader.py:device_prefetch``) hands out.
+
+:meth:`Trainer.train` is the epoch loop of the JAX ``Trainer.train``: a
+loader per epoch seeded ``cfg.seed + epoch``, a log line every 50 steps, the
+``sample_interval`` evaluation of the current batch against its bicubic
+twin, the epoch-end validation sweep (:meth:`Trainer.validate`), the
+reference's best-metric chain, per-epoch checkpoints and ``ckpt_best.pt``,
+step decay, the plateau backtrack, the lr-floor stop, and chain
+initialization from ``cfg.init_from`` (:func:`partial_restore`).
+TensorBoard summaries, the loss-curve plot and ``steps_per_call`` are not
+ported.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterable, Mapping, Optional
+import time
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from sradsgan_tpu_torch.config import TrainConfig
+from sradsgan_tpu_torch.data.datasets import (build_test_dataset,
+                                              build_train_dataset)
+from sradsgan_tpu_torch.data.loader import DataLoader, device_prefetch
 from sradsgan_tpu_torch.losses import gan as gan_losses
 from sradsgan_tpu_torch.losses.pixel import pixel_loss
 from sradsgan_tpu_torch.losses.vgg import load_vgg19
+from sradsgan_tpu_torch.metrics.fidelity import (batched_ergas, batched_psnr,
+                                                 batched_ssim)
 from sradsgan_tpu_torch.models import create_generator, get_spec
 from sradsgan_tpu_torch.ops import plain_dtype
-from sradsgan_tpu_torch.train.state import make_optimizer
+from sradsgan_tpu_torch.train.state import get_lr, make_optimizer, set_lr
+from sradsgan_tpu_torch.utils.logging import Logger
+
+Batch = Mapping[str, Any]
+
+
+def partial_restore(model: nn.Module,
+                    source: Mapping[str, torch.Tensor]) -> Tuple[int, int]:
+    """Copy into ``model`` every parameter of ``source`` whose name and
+    shape match; the others keep their present values, and buffers
+    (BatchNorm running statistics) are left alone, as the JAX package's
+    ``partial_restore`` merges params only.  Chain training restores
+    everything but the upsample tail, whose conv widths differ between
+    scale families.  Returns the (kept, re-initialized) counts."""
+    kept = skipped = 0
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            src = source.get(name)
+            if src is not None and src.shape == param.shape:
+                param.copy_(src)
+                kept += 1
+            else:
+                skipped += 1
+    return kept, skipped
 
 
 class Trainer:
@@ -66,6 +105,10 @@ class Trainer:
             raise RuntimeError(
                 f"Trainer(device={str(device)!r}) needs a CUDA device and "
                 "this torch sees none; pass device='cpu' to train on the CPU")
+        if cfg.val_lpips:
+            raise NotImplementedError(
+                "cfg.val_lpips needs LPIPS, which is not ported to PyTorch "
+                "yet (ROADMAP.md, Queue 1)")
         self.cfg = cfg
         self.spec = get_spec(cfg.model)
         self.g_bf16 = cfg.bf16
@@ -83,6 +126,8 @@ class Trainer:
                 device=self.device).train()
             if cfg.gan.weight_content > 0:
                 self.vgg = load_vgg19(seed=cfg.seed + 2, device=self.device)
+        if cfg.init_from:
+            self._chain_init(cfg.init_from)
         o = cfg.optim
         self.g_opt = make_optimizer(self.generator.parameters(), o.lr, o.b1,
                                     o.b2)
@@ -91,16 +136,36 @@ class Trainer:
                                         o.lr, o.b1, o.b2)
         self.alpha_generator = torch.Generator().manual_seed(cfg.seed + 1)
         self.step = 0
+        self.logger = Logger(cfg.model, os.path.join(cfg.model_dir, "logs"))
+        self.history: Dict[str, list] = {}
+        # seconds the last epoch of train() took, and of those the seconds
+        # its loop waited on the data feed
+        self.feed_stats: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
+    def _chain_init(self, path: str) -> None:
+        """Warm-start from a checkpoint of another scale: the generator's
+        and the discriminator's parameters where name and shape match (the
+        discriminator's running statistics stay fresh, as the JAX package
+        leaves them)."""
+        prev = torch.load(path, map_location=self.device, weights_only=True)
+        kept, skipped = partial_restore(self.generator, prev["generator"])
+        print(f"chain init from {path}: kept {kept} leaves, "
+              f"re-initialized {skipped}")
+        if self.discriminator is not None and "discriminator" in prev:
+            partial_restore(self.discriminator, prev["discriminator"])
+
     def _autocast(self, bf16: bool):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
                               enabled=bf16)
 
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        """NHWC numpy -> NCHW on the device, in the generator's parameter
-        dtype (float32; float64 for a reference trainer)."""
+    def _to_device(self, x) -> torch.Tensor:
+        """An NHWC numpy array or an NCHW tensor -> NCHW on the device, in
+        the generator's parameter dtype (float32; float64 for a reference
+        trainer)."""
         dtype = next(self.generator.parameters()).dtype
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, dtype).contiguous()
         t = torch.from_numpy(np.asarray(x, np.float32)).to(self.device, dtype)
         return t.permute(0, 3, 1, 2).contiguous()
 
@@ -120,7 +185,7 @@ class Trainer:
         opt.step()
 
     # ------------------------------------------------------------------
-    def train_step(self, batch: Mapping[str, np.ndarray],
+    def train_step(self, batch: Batch,
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
         """One G and one D update.  ``generator`` draws the penalty's
@@ -188,14 +253,203 @@ class Trainer:
                     p.clamp_(-gan.clip_value, gan.clip_value)
         metrics["loss_D"] = loss
 
-    def train(self, batches: Iterable[Mapping[str, np.ndarray]],
-              num_steps: int) -> Dict[str, float]:
-        """Up to ``num_steps`` steps over ``batches``; the last step's
-        losses as floats."""
+    def run_steps(self, batches: Iterable[Batch],
+                  num_steps: int) -> Dict[str, float]:
+        """Up to ``num_steps`` steps over caller-made ``batches``; the last
+        step's losses as floats."""
         metrics: Dict[str, torch.Tensor] = {}
         for _, batch in zip(range(num_steps), batches):
             metrics = self.train_step(batch)
         return {k: float(v) for k, v in metrics.items()}
+
+    # ------------------------------------------------------------------
+    # Evaluation: per-image PSNR / SSIM / ERGAS against HR, and the twin's
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _eval_sr(self, lr) -> torch.Tensor:
+        """G(lr) in eval mode and the generator's precision, as float32."""
+        was_training = self.generator.training
+        self.generator.eval()
+        try:
+            with self._autocast(self.g_bf16):
+                sr = self.generator(self._to_device(lr))
+        finally:
+            self.generator.train(was_training)
+        return sr.float()
+
+    @torch.no_grad()
+    def _eval_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """Per-image metrics of G(lr) and of the bicubic twin against hr,
+        each (B,) on the device."""
+        hr_img, bc_img = (self._to_device(batch[k]) for k in ("hr", "bc"))
+        sr = self._eval_sr(batch["lr"])
+        return {"psnr": batched_psnr(sr, hr_img),
+                "ssim": batched_ssim(sr, hr_img),
+                "ergas": batched_ergas(sr, hr_img, self.cfg.scale),
+                "bc_psnr": batched_psnr(bc_img, hr_img),
+                "bc_ssim": batched_ssim(bc_img, hr_img)}
+
+    def validate(self, max_batches: Optional[int] = None) -> Dict[str, float]:
+        """Means of :meth:`_eval_step`'s metrics over the test set (its
+        first ``max_batches`` batches), each image counted once."""
+        cfg = self.cfg
+        dataset = build_test_dataset(cfg.data, cfg.scale)
+        loader = DataLoader(dataset, cfg.data.test_batch_size, shuffle=False,
+                            drop_last=False, num_workers=cfg.data.num_workers)
+        sums: Dict[str, torch.Tensor] = {}
+        count = 0
+        feed = device_prefetch(iter(loader), self.device)
+        try:
+            for i, batch in enumerate(feed):
+                if max_batches is not None and i >= max_batches:
+                    break
+                for k, v in self._eval_step(batch).items():
+                    total = v.double().sum()
+                    sums[k] = sums[k] + total if k in sums else total
+                count += batch["lr"].shape[0]
+        finally:
+            feed.close()
+        return {k: float(v) / max(count, 1) for k, v in sums.items()}
+
+    # ------------------------------------------------------------------
+    # The epoch loop with plateau backtracking
+    # ------------------------------------------------------------------
+    def _save_best(self, path: str) -> None:
+        state = {"generator": self.generator.state_dict()}
+        if self.discriminator is not None:
+            state["discriminator"] = self.discriminator.state_dict()
+        torch.save(state, path)
+
+    def train(self, num_steps: Optional[int] = None) -> Dict[str, float]:
+        """Train for ``cfg.num_epochs`` epochs and return the last
+        validation sweep's metrics, or, with ``num_steps``, stop after that
+        many steps (the epoch cap lifted) and return the last step's
+        losses."""
+        cfg = self.cfg
+        os.makedirs(cfg.model_dir, exist_ok=True)
+        dataset = build_train_dataset(cfg.data, cfg.scale)
+
+        # the reference's maxima init: 0 / 0 / 10000
+        best = {"psnr": 0.0, "ssim": 0.0, "ergas": 10000.0}
+        best_path = os.path.join(cfg.model_dir, "ckpt_best.pt")
+        best_epoch = cfg.start_epoch
+        bad_epochs = 0
+        step_count = 0
+        t0 = time.time()
+        last_metrics: Dict[str, float] = {}
+        metrics: Dict[str, torch.Tensor] = {}
+        self.history = {"loss_G": [], "loss_D": [], "psnr": [], "ssim": [],
+                        "ergas": []}
+
+        max_epochs = cfg.num_epochs if num_steps is None else 10 ** 9
+        epoch = cfg.start_epoch
+        while epoch < max_epochs:
+            lr_now = get_lr(self.g_opt)
+            if lr_now < cfg.optim.lr_floor:  # the reference's stop rule
+                print(f"lr {lr_now:.2e} below floor; stopping")
+                break
+            loader = DataLoader(dataset, cfg.data.batch_size, shuffle=True,
+                                drop_last=True,
+                                num_workers=cfg.data.num_workers,
+                                seed=cfg.seed + epoch)
+            feed = device_prefetch(iter(loader), self.device)
+            epoch_t0 = time.time()
+            waited = 0.0
+            try:
+                while True:
+                    wait_t0 = time.time()
+                    batch = next(feed, None)
+                    waited += time.time() - wait_t0
+                    if batch is None:
+                        break
+                    metrics = self.train_step(batch)
+                    step_count += 1
+                    if step_count % 50 == 0:
+                        m = {k: float(v) for k, v in metrics.items()}
+                        rate = (step_count * cfg.data.batch_size
+                                * cfg.data.crop_size ** 2 / 1e6
+                                / (time.time() - t0))
+                        self.logger.print_format_results(
+                            "train", {"epoch": epoch, "step": step_count,
+                                      "MP/s": rate, **m})
+                    if (cfg.sample_interval
+                            and step_count % cfg.sample_interval == 0):
+                        # the current batch against its bicubic twin
+                        q = self._eval_step(batch)
+                        self.logger.print_format_results(
+                            "train", {"epoch": epoch, "step": step_count,
+                                      **{k: float(v.mean())
+                                         for k, v in q.items()}})
+                    if num_steps is not None and step_count >= num_steps:
+                        return {k: float(v) for k, v in metrics.items()}
+            finally:
+                feed.close()
+                self.feed_stats = {"epoch_s": time.time() - epoch_t0,
+                                   "feed_wait_s": waited}
+
+            # epoch end: the validation sweep feeds the plateau policy, so
+            # it covers the whole test set unless cfg.val_max_batches caps it
+            val = self.validate(max_batches=cfg.val_max_batches)
+            last_metrics = val
+            self.logger.print_format_results("val", {"epoch": epoch, **val})
+            for k in ("loss_G", "loss_D"):
+                if k in metrics:
+                    self.history[k].append(float(metrics[k]))
+            for k in ("psnr", "ssim", "ergas"):
+                self.history[k].append(val[k])
+            # The reference's elif chain: only the first improving metric
+            # updates its stored best, and any improvement resets the
+            # counter and marks this epoch best.
+            improved = True
+            if val["psnr"] > best["psnr"]:
+                best["psnr"] = val["psnr"]
+            elif val["ssim"] > best["ssim"]:
+                best["ssim"] = val["ssim"]
+            elif val["ergas"] < best["ergas"]:
+                best["ergas"] = val["ergas"]
+            else:
+                improved = False
+            if improved:
+                bad_epochs = 0
+                best_epoch = epoch
+                self._save_best(best_path)
+            else:
+                bad_epochs += 1
+            if (cfg.optim.step_decay_epochs
+                    and (epoch + 1) % cfg.optim.step_decay_epochs == 0):
+                set_lr(self.g_opt,
+                       get_lr(self.g_opt) * cfg.optim.step_decay_gamma)
+
+            if (epoch + 1) % cfg.save_epochs == 0:
+                self.save_checkpoint(epoch)
+            epoch += 1
+
+            if bad_epochs >= cfg.optim.plateau_patience:
+                # Plateau backtrack: reload the best G; halve the G lr
+                # always, the D lr only once the lr before the halving is
+                # under 1e-4; rewind the epoch counter to just after the
+                # best epoch and pop the stale metric history (the loss
+                # curves stay, as in the reference).
+                if os.path.exists(best_path):
+                    prev = torch.load(best_path, map_location=self.device,
+                                      weights_only=True)
+                    self.generator.load_state_dict(prev["generator"])
+                else:
+                    print("plateau: no best checkpoint yet "
+                          "(no finite-improvement epoch so far)")
+                cur_lr = get_lr(self.g_opt)
+                set_lr(self.g_opt, cur_lr * 0.5)
+                if self.d_opt is not None and cur_lr < 1e-4:
+                    set_lr(self.d_opt, get_lr(self.d_opt) * 0.5)
+                bad_epochs = 0
+                print(f"plateau: reloaded best, lr -> {cur_lr * 0.5:.2e}")
+                if cfg.optim.plateau_rewind:
+                    epoch = best_epoch + 1
+                    for k in ("psnr", "ssim", "ergas"):
+                        hist = self.history[k]
+                        del hist[len(hist) - min(cfg.optim.plateau_patience,
+                                                 len(hist)):]
+        return last_metrics
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, epoch: int,

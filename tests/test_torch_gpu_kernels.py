@@ -3,7 +3,9 @@
 Edge shapes that chip_smoke.py does not cover: single elements, images
 smaller than the 7x7 stencil or the 16x16 tile, ragged tiles, tied maxima,
 attention lengths around the key-tile size and every instantiated width,
-for the forward kernels and the backward ones; the gate's double backward
+for the forward kernels and the backward ones; the fused RAB tail at
+ragged tiles, images under its halo, 16 and 256 channels, with its backward
+and inside a RAB; the gate's double backward
 on the card; and the dispatch that sends CUDA tensors to the kernels.  Marked ``gpu``; they skip
 where no CUDA device is present.  This file imports neither JAX nor the
 JAX package, so on a machine without them run it as
@@ -15,7 +17,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from sradsgan_tpu_torch.ops import pooling, sgam_flash, spatial_gate  # noqa
+from sradsgan_tpu_torch.models.sradsgan import RAB  # noqa: E402
+from sradsgan_tpu_torch.ops import (pooling, rab_tail, sgam_flash,  # noqa
+                                    spatial_gate)
 
 pytestmark = pytest.mark.gpu
 # max |kernel - plain| over max |plain|: float32 sums in another order,
@@ -128,6 +132,91 @@ def test_attention_bwd_kernel(cuda, dtype, n, d_qk, d_v):
         _close(a, b, dtype, floor=1.0 if n == 1 else 0.0)
 
 
+def _rab_tail_args(shape, dtype, device, ties=False):
+    b, c, h, w = shape
+    hidden = max(c // 16, 1)
+    t = _randn(shape, torch.float32, device, seed=8)
+    if ties:  # a few integer values: tied maxima over H, W and over C
+        t = t.mul(1.5).round()
+    # live hidden units, scaled so that the channel gate stays away from
+    # saturation at every width (a gate that rounds to 1.0 in float32 and
+    # not in float64 would tie maxima of u on one side only)
+    w1 = (_randn((c, hidden), torch.float32, device, 11, 0.02).abs()
+          + 0.05) * (16 / c)
+    return (t.to(dtype), _randn(shape, dtype, device, seed=9), w1,
+            _randn((hidden, c), torch.float32, device, 12, 0.1),
+            _randn((1, 2, 7, 7), torch.float32, device, 13, 0.3),
+            _randn((c, c), torch.float32, device, 14, 0.5 / c ** 0.5),
+            _randn((c,), torch.float32, device, 15, 0.05))
+
+
+# ragged tiles, H or W under the 3-pixel halo, C = 16 (one hidden unit,
+# half a pass of the fuse) and 256 (eight passes), B = 1
+RAB_TAIL_SHAPES = [(1, 16, 1, 1), (1, 16, 2, 5), (2, 64, 17, 33),
+                   (1, 64, 54, 54), (2, 256, 20, 17), (3, 48, 16, 16),
+                   (1, 32, 70, 3)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", RAB_TAIL_SHAPES)
+def test_rab_tail_kernel(cuda, dtype, shape):
+    args = _rab_tail_args(shape, dtype, cuda)
+    got = rab_tail.rab_tail_cuda(*args)
+    want = rab_tail.rab_tail_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype
+    for g, r in zip(got, want):
+        _close(g, r, dtype)
+    # the maxima are exact: max_t as it stands, max_u as the maximum of the
+    # products with the kernel's own gate_c
+    t32 = args[0].float()
+    assert torch.equal(got[6], want[6])
+    assert torch.equal(got[4], (t32 * got[1][:, :, None, None]).amax(1))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape", [(1, 16, 2, 5), (2, 64, 17, 33),
+                                   (2, 256, 20, 17)])
+def test_rab_tail_backward_on_cuda(cuda, shape, ties):
+    """The op's backward on the card (its SLAM part launches the gate's
+    backward kernel) against the same op on the CPU in float64."""
+    args = _rab_tail_args(shape, torch.float32, cuda, ties)
+    g = _randn(shape, torch.float32, cuda, seed=10)
+    leaves = [a.clone().requires_grad_() for a in args]
+    before = (rab_tail.rab_tail_cuda.launches,
+              spatial_gate.spatial_gate_bwd_cuda.launches)
+    got = torch.autograd.grad(rab_tail.fused_rab_tail(*leaves), leaves, g)
+    assert (rab_tail.rab_tail_cuda.launches,
+            spatial_gate.spatial_gate_bwd_cuda.launches) == (before[0] + 1,
+                                                             before[1] + 1)
+    ref = [a.detach().cpu().double().requires_grad_() for a in args]
+    want = torch.autograd.grad(rab_tail.fused_rab_tail(*ref), ref,
+                               g.cpu().double())
+    for a, r in zip(got, want):
+        err = (a.cpu().double() - r).abs().max()
+        assert err <= 1e-4 * r.abs().max(), float(err)
+
+
+def test_fused_rab_block_on_cuda(cuda):
+    """A fused RAB on the card against the unfused one: forward, and the
+    gradients of every parameter."""
+    unfused, fused = RAB(64).to(cuda), RAB(64, "fused").to(cuda)
+    with torch.no_grad():
+        for p in unfused.parameters():
+            p.copy_(_randn(p.shape, torch.float32, cuda, seed=p.numel() % 97,
+                           std=0.5 / max(p[0].numel(), 1) ** 0.5))
+        unfused.ca.fc1.weight.abs_().add_(0.05)
+    fused.load_state_dict(unfused.state_dict())
+    x = _randn((2, 64, 30, 21), torch.float32, cuda)
+    want, got = unfused(x), fused(x)
+    _close(got, want, torch.float32)
+    g_want = torch.autograd.grad(want.square().sum(),
+                                 list(unfused.parameters()))
+    g_got = torch.autograd.grad(got.square().sum(), list(fused.parameters()))
+    for a, r in zip(g_got, g_want):
+        assert (a - r).abs().max() <= 1e-4 * r.abs().max()
+
+
 @pytest.mark.parametrize("shape", [(2, 64, 20, 19), (2, 256, 27, 27)])
 def test_gate_double_backward_on_cuda(cuda, shape):
     """The WGAN-GP's second order through the gate on the card (K2 and K4
@@ -182,6 +271,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         sgam_flash.position_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="g must be a contiguous"):
         spatial_gate.spatial_gate_bwd_cuda(x, w, x.transpose(2, 3))
+    args = _rab_tail_args((2, 16, 9, 9), torch.float32, cuda)
+    with pytest.raises(ValueError, match="x_res must be a contiguous"):
+        rab_tail.rab_tail_cuda(args[0], args[1].to(torch.bfloat16), *args[2:])
+    with pytest.raises(ValueError, match="fuse_w must be a contiguous"):
+        rab_tail.rab_tail_cuda(*args[:5], args[5].t(), args[6])
+    with pytest.raises(ValueError, match="at most 256 channels"):
+        rab_tail.rab_tail_cuda(*_rab_tail_args((1, 272, 4, 4),
+                                               torch.float32, cuda))
     q = _randn((1, 10, 8), torch.float32, cuda)
     v = _randn((1, 10, 64), torch.float32, cuda)
     out, lse = sgam_flash.position_attention_cuda(q, q, v, with_lse=True)

@@ -80,14 +80,26 @@ def test_port_imports_no_jax_flax_or_pil():
             "import sradsgan_tpu_torch.losses.gan\n"
             "import sradsgan_tpu_torch.models.discriminators\n"
             "import sradsgan_tpu_torch.tools.profile_train\n"
+            "import sradsgan_tpu_torch.tools.profile_serving\n"
+            "import sradsgan_tpu_torch.ops.rab_tail\n"
+            "import sradsgan_tpu_torch.ops.resize\n"
+            "import sradsgan_tpu_torch.config\n"
+            "import sradsgan_tpu_torch.data.datasets\n"
+            "import sradsgan_tpu_torch.data.loader\n"
+            "import sradsgan_tpu_torch.metrics.fidelity\n"
+            "import sradsgan_tpu_torch.utils.logging\n"
+            "from sradsgan_tpu_torch.data.datasets import SyntheticDataset\n"
+            "SyntheticDataset(2, 4, 16).load(0)\n"
             "print(json.dumps({m: m in sys.modules\n"
             "                  for m in ('jax', 'flax', 'PIL',\n"
+            "                            'matplotlib',\n"
             "                            'sradsgan_tpu')}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
-        "jax": False, "flax": False, "PIL": False, "sradsgan_tpu": False}
+        "jax": False, "flax": False, "PIL": False, "matplotlib": False,
+        "sradsgan_tpu": False}
 
 
 def _kernel_args():

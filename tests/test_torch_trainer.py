@@ -254,7 +254,7 @@ def test_float64_trainer_takes_the_step_in_float64(tmp_path):
 
 def test_train_clips_the_discriminator_and_keeps_lr_settable(tmp_path):
     t = _tiny_trainer(tmp_path)
-    out = t.train(iter(_batches(3)), num_steps=2)
+    out = t.run_steps(iter(_batches(3)), num_steps=2)
     assert t.step == 2 and np.isfinite(list(out.values())).all()
     clip = t.cfg.gan.clip_value
     assert all(float(p.detach().abs().max()) <= clip
