@@ -13,18 +13,22 @@ Phases, each of which raises (exit code 1) on failure:
    the train step's and the serving path's shapes, float32 and bfloat16,
    every output, with its error and its time beside the plain version's
    (CUDA events), beside its bound (the least time the card could take:
-   the bytes the function must move over the memory rate, or its
-   operations over the peak rate of their type, whichever is larger) and,
-   where one PyTorch call computes the same function, that call's time;
-   the fused RAB tail also beside the unfused composition it replaces;
+   the bytes the function must move over the memory rate, its operations
+   over the peak rate of their type, or its exponentials over the special
+   function units' rate, whichever is largest) and, where one PyTorch call
+   computes the same function, that call's time in float32 and bfloat16;
+   the fused RAB tail also beside the unfused composition it replaces; the
+   attention forward also at one 216^2 image (N = 46 656) against the plain
+   version taken in blocks of queries;
 4. serving: the full-width SRADSGAN x4 generator (12 groups x 3 RABs x 64
    filters, seeded random weights, both attention gains 0.5) served by
    ``serving.Predictor``: a batch of four 54^2 requests, a 60x50 and a
-   130x130 request (bucket padding) and a 240x240 one (halo tiling).  The
+   130x130 request (the 216^2 bucket) and a 240x240 one (halo tiling).  The
    launch counters must show that every kernel of that path ran.  The
    card's output for two 54^2 images is held against the CPU plain path
    (TF32 off), the bf16 output against the float32 one, and the
-   batch-of-four latency is timed in both types.  Then the same weights
+   batch-of-four and the 130x130 latencies are timed in both types, the
+   latter beside the attention kernel's time at its N.  Then the same weights
    in a generator built with ``rab_tail="fused"``: the request held
    against the unfused card
    output, its launch counts (the fused tail 48 times a forward, the
@@ -107,10 +111,16 @@ GRAD_TOL = {"generator": 1e-3, "discriminator": 2e-2}
 ZERO_TOL = 1e-3
 LOSS_TOL = 1e-4
 # The card's published peaks (NVIDIA H100 SXM data sheet), for the bounds:
-# device memory rate, and dense FLOP/s by the inputs' type (float32 outside
-# the tensor cores: the parity mode keeps TF32 off; bf16 on them).
+# device memory rate, and dense FLOP/s by the inputs' type.  bf16 runs on
+# the tensor cores at 989 TFLOP/s.  float32 inputs may too, and keep
+# float32 accuracy there, as the sum of three TF32 products (high and
+# residual parts) at the fewest: 495 / 3 = 165 TFLOP/s, above the 67 of the
+# CUDA cores, so that is the rate no float32 implementation can beat.
+# Exponentials go through the special function units, 16 a clock on each
+# multiprocessor, at nvidia-smi's clocks.max.sm.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+EXPS_PER_CLOCK_PER_SM = 16
 L2_BYTES = 50 * 2 ** 20
 
 KERNELS = {
@@ -201,6 +211,53 @@ def phase_build() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("  ptxas:", line.strip())
+    _sass_counts()
+
+
+def _sass_counts() -> None:
+    """Where the toolkit has cuobjdump: how many tensor-core (HGMMA: wgmma;
+    HMMA: bf16 and TF32 mma.sync) and asynchronous-copy (LDGSTS: cp.async)
+    instructions each attention kernel was compiled to, summed over its
+    bf16 and its float32 instantiations.  Either kind without them is a
+    failure."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("sass: no cuobjdump in the toolkit; not counted")
+        return
+    lib = _build.BUILD_DIR / _build.source_hash() / _build.LIB_NAME
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            kernel = next((k for k in ("position_attention_kernel",
+                                       "attention_bwd_kernel")
+                           if k in name), None)
+            dtype = "bf16" if "__nv_bfloat16" in name else "f32"
+            current = (kernel, dtype) if kernel else None
+            if current:
+                counts.setdefault(current, {"HGMMA": 0, "HMMA": 0,
+                                            "LDGSTS": 0, "functions": 0})
+                counts[current]["functions"] += 1
+        elif current:
+            for op in ("HGMMA", "HMMA", "LDGSTS"):
+                if f" {op}" in line:
+                    counts[current][op] += 1
+    for (kernel, dtype), c in sorted(counts.items()):
+        print(f"sass: {kernel} {dtype}: {c['functions']} instantiations, "
+              f"{c['HGMMA']} HGMMA, {c['HMMA']} HMMA, {c['LDGSTS']} LDGSTS")
+        if not ((c["HGMMA"] or c["HMMA"]) and c["LDGSTS"]):
+            fail(f"{kernel} {dtype} was compiled without tensor-core or "
+                 "asynchronous-copy instructions")
+    if len(counts) != 4:
+        fail(f"sass: found {sorted(counts)} of the attention kernels")
+    for kernel in ("position_attention_kernel", "attention_bwd_kernel"):
+        if not counts[(kernel, "bf16")]["HGMMA"]:
+            fail(f"the bf16 {kernel} was compiled without warpgroup "
+                 "products")
 
 
 def _randn(shape, dtype, seed, scale=1.0):
@@ -323,7 +380,9 @@ def _kernel_cases():
     ``flops`` the operations of the function on these inputs; ``extra`` maps
     a label to another zero-argument call timed beside the kernel (the
     bytes-bound kernels with their inputs out of the L2, see :func:`_cold`;
-    the unfused composition; the library call is timed apart)."""
+    the unfused composition; the library call is timed apart), and for the
+    attention kernels ``"exps"`` to the exponentials the function needs (one
+    a query-key pair) and ``"iters"`` to the calls per timing."""
     w = _randn((1, 2, 7, 7), torch.float32, 1, scale=0.3)
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.finfo(dtype).bits // 8
@@ -379,7 +438,9 @@ def _kernel_cases():
                     "composition_cold_ms": _cold(unfused, t, x_res)})
         # SGAM at the train step's batch, N = 54^2, then a ragged 27^2, the
         # serving record's batch of two and the validation sweep's of one
-        for b, n in ((16, 2916), (16, 729), (2, 2916), (1, 2916)):
+        # and one 216^2 image, the serving path's largest bucket, whose plain
+        # version goes by blocks of queries (its energy would be 8.7 GB)
+        for b, n in ((16, 2916), (16, 729), (2, 2916), (1, 2916), (1, 46656)):
             q = _randn((b, n, 8), dtype, 3, scale=0.5)
             k = _randn((b, n, 8), dtype, 4, scale=0.5)
             v = _randn((b, n, 64), dtype, 5)
@@ -387,12 +448,15 @@ def _kernel_cases():
             shape = (b, n, 8, 64)
             fwd_bytes = b * n * (8 + 8 + 64 + 64) * es
             fwd_flops = 2 * b * n * n * (8 + 64)
+            counts = {"exps": b * n * n, "iters": 20 if n < 10000 else 3}
             yield ("position_attention", "", dtype, shape,
                    lambda q=q, k=k, v=v:
                    sgam_flash.position_attention_cuda(q, k, v),
-                   lambda q=q, k=k, v=v:
-                   sgam_flash.position_attention_plain(q, k, v),
-                   fwd_bytes, fwd_flops, {})
+                   lambda q=q, k=k, v=v, plain=(
+                       sgam_flash.position_attention_plain if n < 10000 else
+                       sgam_flash.position_attention_plain_chunked):
+                   plain(q, k, v),
+                   fwd_bytes, fwd_flops, dict(counts))
             if b != 16:  # forward only: served or swept under no-grad
                 continue
             yield ("position_attention", " +lse", dtype, shape,
@@ -400,7 +464,7 @@ def _kernel_cases():
                        q, k, v, with_lse=True)[0],
                    lambda q=q, k=k, v=v:
                    sgam_flash.position_attention_plain(q, k, v),
-                   fwd_bytes + b * n * 4, fwd_flops, {})
+                   fwd_bytes + b * n * 4, fwd_flops, dict(counts))
             out, lse = sgam_flash.position_attention_cuda(q, k, v,
                                                           with_lse=True)
             yield ("position_attention_bwd", "", dtype, shape,
@@ -410,7 +474,7 @@ def _kernel_cases():
                    lambda q=q, k=k, v=v, dout=dout:
                    sgam_flash.position_attention_bwd_plain(q, k, v, dout),
                    b * n * ((8 + 8 + 64) * 2 + 64 + 64) * es + b * n * 4,
-                   2 * b * n * n * (8 + 64 + 64 + 8 + 8), {})
+                   2 * b * n * n * (8 + 64 + 64 + 8 + 8), dict(counts))
 
 
 def _check_rab_tail_maxima(t: torch.Tensor, got: tuple) -> None:
@@ -428,13 +492,28 @@ def _check_rab_tail_maxima(t: torch.Tensor, got: tuple) -> None:
              "t * gate_c")
 
 
+def _exps_per_s() -> float:
+    """The card's peak rate of exponentials, from its multiprocessor count
+    and nvidia-smi's highest SM clock (MHz)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EXPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns, per kernel, the
     error, the times and the bound at its first (train step, float32) case,
-    and the K3 time with the log-sum-exp store."""
+    the K3 time with the log-sum-exp store, and under ``cases`` the times
+    and bounds of every case."""
     record = {}
+    exps_per_s = _exps_per_s()
     for (name, label, dtype, shape, kernel, plain, n_bytes, flops,
          extra) in _kernel_cases():
+        exps = extra.pop("exps", 0)
+        iters = extra.pop("iters", 20)
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -450,49 +529,67 @@ def phase_kernels() -> dict:
         if not max(rels) <= TOL[dtype]:
             fail(f"{name}{label} {dtype} {shape}: errors {rels} of max|ref| "
                  f"exceed {TOL[dtype]:.0e}")
+        del got, want
         # plain, kernel, kernel, plain: drift hits both alike
-        p1 = cuda_ms(plain)
-        k1 = cuda_ms(kernel)
-        k2 = cuda_ms(kernel)
-        p2 = cuda_ms(plain)
+        p1 = cuda_ms(plain, iters)
+        k1 = cuda_ms(kernel, iters)
+        k2 = cuda_ms(kernel, iters)
+        p2 = cuda_ms(plain, iters)
         ms, eager_ms = ((a + b) / 2 for a, b in zip(k1, k2))
         plain_ms, plain_eager_ms = ((a + b) / 2 for a, b in zip(p1, p2))
         extras = {key: cuda_ms(fn)[0] for key, fn in extra.items()}
-        byte_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-        flop_ms = flops / PEAK_FLOPS[dtype] * 1e3
-        bound_ms = max(byte_ms, flop_ms)
-        bound_by = "bytes" if byte_ms >= flop_ms else "operations"
+        terms = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
+                 "products": flops / PEAK_FLOPS[dtype] * 1e3,
+                 "exponentials": exps / exps_per_s * 1e3}
+        bound_term = max(terms, key=terms.get)
+        bound_ms = terms[bound_term]
+        if not ms >= bound_ms:  # a fault of the bound, not a fast kernel
+            print(f"OVER BOUND: {name}{label} {dtype} {shape} took "
+                  f"{ms:.4f} ms, under its bound of {bound_ms:.4f} ms "
+                  f"({bound_term})")
+        # exponentials are operations too: the term says which kind
+        bound_by = "bytes" if bound_term == "bytes" else "operations"
         print(f"kernel {name + label:<24} {str(dtype):<14} {str(shape):<18} "
               f"max_abs_err {max(errs):.3e} (of max|ref|: "
               f"{', '.join(f'{r:.2e}' for r in rels)}; tol "
               f"{TOL[dtype]:.0e})  device: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)"
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_term}: "
+              f"{n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP, "
+              f"{exps / 1e6:.1f} M exps)"
               + "".join(f", {k} {v:.4f}" for k, v in extras.items())
               + f"; eager: kernel {eager_ms:.4f} ms, plain "
               f"{plain_eager_ms:.4f} ms")
         if label:
             record[name].setdefault("ms_with_lse", ms)
-        elif name not in record:
+            continue
+        if name not in record:
             record[name] = {"max_abs_err": max(errs), "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by, "library_ms": None,
+                            "bound_by": bound_by, "bound_term": bound_term,
+                            "library_ms": None,
                             "eager_ms": eager_ms,
                             "plain_eager_ms": plain_eager_ms,
                             "dtype": str(dtype), "shape": list(shape),
-                            **extras}
+                            **extras, "cases": {}}
+        case = f"{str(dtype).rpartition('.')[2]} {'x'.join(map(str, shape))}"
+        record[name]["cases"][case] = {
+            "max_rel_err": max(rels), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_term": bound_term}
 
-    # the library yardstick of K3 and K5, at their first case's inputs
-    q = _randn((16, 2916, 8), torch.float32, 3, scale=0.5)
-    k = _randn((16, 2916, 8), torch.float32, 4, scale=0.5)
-    v = _randn((16, 2916, 64), torch.float32, 5)
-    dout = _randn((16, 2916, 64), torch.float32, 7)
-    fwd_ms, bwd_ms, backends = _sdpa_library(q, k, v, dout)
-    record["position_attention"]["library_ms"] = fwd_ms
-    record["position_attention_bwd"]["library_ms"] = bwd_ms
-    print(f"library scaled_dot_product_attention(scale=1.0) float32 "
-          f"(16, 2916, 8, 64): forward {fwd_ms:.4f} ms, autograd backward "
-          f"{bwd_ms:.4f} ms; backends asked for alone: {backends}")
+    # the library yardstick of K3 and K5, at their first case's shape
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn((16, 2916, 8), dtype, 3, scale=0.5)
+        k = _randn((16, 2916, 8), dtype, 4, scale=0.5)
+        v = _randn((16, 2916, 64), dtype, 5)
+        dout = _randn((16, 2916, 64), dtype, 7)
+        fwd_ms, bwd_ms, backends = _sdpa_library(q, k, v, dout)
+        key = "library_ms" if dtype == torch.float32 else "library_bf16_ms"
+        record["position_attention"][key] = fwd_ms
+        record["position_attention_bwd"][key] = bwd_ms
+        print(f"library scaled_dot_product_attention(scale=1.0) {dtype} "
+              f"(16, 2916, 8, 64): forward {fwd_ms:.4f} ms, autograd "
+              f"backward {bwd_ms:.4f} ms; backends asked for alone: "
+              f"{backends}")
     return record
 
 
@@ -541,7 +638,9 @@ def forward_launches(generator, forwards: int = 1) -> dict:
             "position_attention_bwd": 0, "rab_tail": gates if fused else 0}
 
 
-def phase_serving(smi: str) -> dict:
+def phase_serving(smi: str, k3_ms: dict) -> dict:
+    """``k3_ms``: the attention forward's time at one 216^2 image by type,
+    from phase_kernels, to set beside the 130x130 request's latency."""
     scale = 4
     model = create_generator("sradsgan", scale, seed=0)
     with torch.no_grad():
@@ -634,6 +733,16 @@ def phase_serving(smi: str) -> dict:
         serving[f"{label}_mp_per_s"] = mpix / (ms / 1e3)
         print(f"serving batch 4 x 54^2 -> 216^2 {label}: {ms:.2f} ms/request, "
               f"{mpix / (ms / 1e3):.3f} MP/s of output [{smi}]")
+    # the 216^2 bucket: one image, the attention at N = 46 656
+    big = requests["130x130"]
+    for label, p, dtype in (("f32", pred, torch.float32),
+                            ("bf16", pred_bf16, torch.bfloat16)):
+        ms = latency_ms(p, big, iters=5)
+        serving[f"bucket216_{label}_ms"] = ms
+        serving[f"bucket216_{label}_k3_share"] = k3_ms[dtype] / ms
+        print(f"serving 130x130 (216^2 bucket) {label}: {ms:.2f} ms/request, "
+              f"of which the attention kernel {k3_ms[dtype]:.4f} ms "
+              f"({k3_ms[dtype] / ms:.1%}) [{smi}]")
     return {"launches": launches, "fused_launches": fused_launches,
             "serving": serving}
 
@@ -1049,7 +1158,10 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     record = phase_kernels()
-    serving = phase_serving(smi)
+    big = record["position_attention"]["cases"]
+    serving = phase_serving(smi, {
+        torch.float32: big["float32 1x46656x8x64"]["ms"],
+        torch.bfloat16: big["bfloat16 1x46656x8x64"]["ms"]})
     correctness = {"unfused": phase_train_correctness("unfused")}
     correctness["fused"] = phase_train_correctness(
         "fused", correctness["unfused"].pop("card"))

@@ -44,8 +44,7 @@ _SIGNATURES = {
     "sg_spatial_gate_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P],
     "sg_position_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sg_position_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _I, _P],
+    "sg_position_attention_bwd": [_P] * 10 + [_I] * 5 + [_P],
     "sg_rab_tail": [_P] * 14 + [_I] * 6 + [_P],
 }
 

@@ -3,9 +3,11 @@
 Counterpart of ``sradsgan_tpu/ops/sgam_flash.py``.  On CUDA tensors
 :func:`position_attention` launches the hand-written flash kernel in
 ``csrc/sgam_flash.cu``, which keeps float32 running softmax statistics and
-never writes the (N, N) energy, and its backward the two kernels in
+never writes the (N, N) energy, and its backward the kernels in
 ``csrc/sgam_flash_bwd.cu``, which recompute the probabilities from the row
-log-sum-exp the forward saved; on CPU tensors it runs
+log-sum-exp the forward saved.  Both run their products on the tensor cores:
+bfloat16 inputs directly, float32 inputs as error-compensated TF32 products
+that keep float32 accuracy (``csrc/sgam_mma.cuh``).  On CPU tensors it runs
 :func:`position_attention_plain`, the exact float32 softmax of the JAX
 package's f32 path (``sradsgan_tpu/nn/attention.py``), and its autograd.
 """
@@ -44,6 +46,46 @@ def position_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         return torch.autograd.grad(out, inputs, dout)
 
 
+def position_attention_plain_chunked(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor,
+                                     chunk: int = 2048) -> torch.Tensor:
+    """:func:`position_attention_plain` by blocks of ``chunk`` queries: a
+    query's softmax needs its own row of energies only, so a long sequence
+    never holds the (N, N) energy at once."""
+    return torch.cat([position_attention_plain(q[:, i:i + chunk], k, v)
+                      for i in range(0, q.shape[1], chunk)], dim=1)
+
+
+def attention_delta_plain(out: torch.Tensor,
+                          dout: torch.Tensor) -> torch.Tensor:
+    """delta_i = dO_i . O_i in float32, (B, N): the term that turns dP into
+    dS = P * (dP - delta) without the softmax's Jacobian.  The backward
+    kernel's prologue computes the same."""
+    return (dout.float() * out.float()).sum(-1)
+
+
+def position_attention_bwd_from_delta(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor, out: torch.Tensor,
+                                      dout: torch.Tensor
+                                      ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) by the formulas the backward kernels evaluate tile by
+    tile, written out in plain PyTorch in the plain version's dtype."""
+    dtype = plain_dtype(q)
+    q_, k_, v_, do_ = (t.to(dtype) for t in (q, k, v, dout))
+    p = torch.softmax(torch.bmm(q_, k_.transpose(1, 2)), dim=-1)
+    delta = attention_delta_plain(out, dout).to(dtype)
+    ds = p * (torch.bmm(do_, v_.transpose(1, 2)) - delta[..., None])
+    return (torch.bmm(ds, k_).to(q.dtype),
+            torch.bmm(ds.transpose(1, 2), q_).to(k.dtype),
+            torch.bmm(p.transpose(1, 2), do_).to(v.dtype))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The kernels copy rows in 16-byte pieces; a view that starts off that
+    grid (fresh allocations never do) is copied onto it."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check_qkv(op: str, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> None:
     for t in (q, k, v):
@@ -68,6 +110,7 @@ def position_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     output, or with ``with_lse`` (output, (B, N) float32 row log-sum-exp)
     for the backward."""
     _check_qkv("position_attention", q, k, v)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     b, n, d_qk = q.shape
     out = torch.empty_like(v)
     lse: Optional[torch.Tensor] = None
@@ -89,7 +132,7 @@ def position_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                 dout: torch.Tensor, lse: torch.Tensor
                                 ) -> Tuple[torch.Tensor, ...]:
     """The backward kernels: (dq, dk, dv).  delta_i = dO_i . O_i is formed
-    here in float32, outside the kernels, as the JAX library does."""
+    in float32 by the launch's prologue kernel, into scratch given here."""
     op = "position_attention_bwd"
     _check_qkv(op, q, k, v)
     _build.check_like(op, out, v, "out")
@@ -99,11 +142,13 @@ def position_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"{op}: lse must be a contiguous float32 ({b}, {n}) "
                          f"tensor on {q.device}")
-    delta = (dout.float() * out.float()).sum(-1)
+    q, k, v, out, dout = map(_aligned, (q, k, v, out, dout))
+    delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _build.launch("sg_position_attention_bwd", q.device, q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), b, n, d_qk, v.shape[-1],
                   _build.DTYPE_CODES[q.dtype])
     position_attention_bwd_cuda.launches += 1

@@ -3,7 +3,10 @@
 Edge shapes that chip_smoke.py does not cover: single elements, images
 smaller than the 7x7 stencil or the 16x16 tile, ragged tiles, tied maxima,
 attention lengths around the key-tile size and every instantiated width,
-for the forward kernels and the backward ones; the fused RAB tail at
+for the forward kernels and the backward ones; the attention kernels also
+at lengths off every tile, on each launch configuration (few or many
+blocks), at energies of +-30, with a whole key tile of equal energies and
+twice over for equal bits; the fused RAB tail at
 ragged tiles, images under its halo, 16 and 256 channels, with its backward
 and inside a RAB; the gate's double backward
 on the card; and the dispatch that sends CUDA tensors to the kernels.  Marked ``gpu``; they skip
@@ -130,6 +133,87 @@ def test_attention_bwd_kernel(cuda, dtype, n, d_qk, d_v):
         assert a.dtype == dtype
         # one key: softmax is 1 whatever q and k, so dq = dk = 0 exactly
         _close(a, b, dtype, floor=1.0 if n == 1 else 0.0)
+
+
+def _attention_check(q, k, v, dout, dtype):
+    """Forward, log-sum-exp and backward on the card against the plain
+    versions in float64 on the card's own (rounded) inputs; a second launch
+    must give the same bits (no atomics)."""
+    out, lse = sgam_flash.position_attention_cuda(q, k, v, with_lse=True)
+    assert torch.equal(out, sgam_flash.position_attention_cuda(q, k, v))
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, dout))
+    _close(out, sgam_flash.position_attention_plain_chunked(q64, k64, v64),
+           dtype)
+    assert torch.isfinite(out.float()).all()
+    if q.shape[1] > 4096:
+        return
+    _close(lse, torch.logsumexp(q64 @ k64.transpose(1, 2), -1),
+           torch.float32)
+    got = sgam_flash.position_attention_bwd_cuda(q, k, v, out, dout, lse)
+    again = sgam_flash.position_attention_bwd_cuda(q, k, v, out, dout, lse)
+    want = sgam_flash.position_attention_bwd_plain(q64, k64, v64, do64)
+    torch.cuda.synchronize()
+    for a, a2, b in zip(got, again, want):
+        assert torch.equal(a, a2)
+        # one key: softmax is 1 whatever q and k, so dq = dk = 0 exactly
+        _close(a, b, dtype, floor=1.0 if q.shape[1] == 1 else 0.0)
+
+
+# lengths off every tile (16-row fragments, 64-key tiles, 128-row blocks),
+# batches that give fewer blocks than the card has multiprocessors (the
+# split-key forward, the one-warp backward) and more (the full blocks, in
+# bf16 the warpgroup kernels)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,n", [(1, 1), (2, 63), (1, 65), (3, 129),
+                                 (1, 2916), (16, 729), (24, 2916),
+                                 (300, 129), (1, 9000)])
+def test_attention_kernels_ragged_and_launch_configurations(cuda, dtype, b,
+                                                            n):
+    q = _randn((b, n, 8), dtype, cuda, seed=2, std=0.5)
+    k = _randn((b, n, 8), dtype, cuda, seed=3, std=0.5)
+    v = _randn((b, n, 64), dtype, cuda, seed=4)
+    dout = _randn((b, n, 64), dtype, cuda, seed=6)
+    _attention_check(q, k, v, dout, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 20])
+def test_attention_kernels_at_large_energies(cuda, dtype, b):
+    """q, k of scale 1.7: energies reach +-30 and beyond, where a product of
+    reduced precision would show in the exponent."""
+    q = _randn((b, 1000, 8), dtype, cuda, seed=2, std=1.7)
+    k = _randn((b, 1000, 8), dtype, cuda, seed=3, std=1.7)
+    v = _randn((b, 1000, 64), dtype, cuda, seed=4)
+    dout = _randn((b, 1000, 64), dtype, cuda, seed=6)
+    assert (q.float() @ k.float().transpose(1, 2)).abs().max() > 30
+    _attention_check(q, k, v, dout, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 80])
+def test_attention_kernels_with_a_tile_of_equal_energies(cuda, dtype, b):
+    """Keys 64..127 (one whole key tile) are the same vector, and so are
+    all keys of a second input: uniform weights within the tile, and a
+    running max that a tile leaves as it was."""
+    n = 200
+    q = _randn((b, n, 8), dtype, cuda, seed=2, std=0.5)
+    k = _randn((b, n, 8), dtype, cuda, seed=3, std=0.5)
+    v = _randn((b, n, 64), dtype, cuda, seed=4)
+    dout = _randn((b, n, 64), dtype, cuda, seed=6)
+    k[:, 64:128] = k[:, 64:65]
+    _attention_check(q, k.contiguous(), v, dout, dtype)
+    k[:] = 0  # every energy 0: the output is the mean of v
+    out = sgam_flash.position_attention_cuda(q, k, v)
+    _close(out, v.float().mean(1, keepdim=True).expand_as(v), dtype)
+
+
+def test_attention_kernels_take_an_unaligned_view(cuda):
+    """A contiguous view that starts off the 16-byte grid."""
+    q1 = _randn((2 * 40 * 2 + 1,), torch.bfloat16, cuda, seed=2)[1:].view(
+        2, 40, 2)
+    assert q1.data_ptr() % 16 and q1.is_contiguous()
+    v1 = _randn((2, 40, 16), torch.bfloat16, cuda, seed=4)
+    _attention_check(q1, q1, v1, v1, torch.bfloat16)
 
 
 def _rab_tail_args(shape, dtype, device, ties=False):

@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from sradsgan_tpu.nn.attention import (  # noqa: E402
     SpatialSelfAttention as JaxSGAM)
 from sradsgan_tpu_torch.nn.attention import SpatialSelfAttention  # noqa
+from sradsgan_tpu_torch.ops import sgam_flash  # noqa: E402
 from sradsgan_tpu_torch.ops.sgam_flash import position_attention  # noqa
 
 
@@ -76,3 +77,29 @@ def test_position_attention_is_unscaled_softmax(n):
     sdpa = torch.nn.functional.scaled_dot_product_attention(tq, tk, tv,
                                                             scale=1.0)
     np.testing.assert_allclose(sdpa.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,chunk", [(50, 16), (129, 64), (40, 2048)])
+def test_chunked_forward_and_delta_backward_equal_the_plain_versions(n,
+                                                                     chunk):
+    """What the card's checks lean on: the plain forward taken by blocks of
+    queries (the reference of the long-sequence case) and the backward
+    written with delta_i = dO_i . O_i (the formulas the backward kernels
+    evaluate) equal the plain version and its autograd."""
+    rng = np.random.default_rng(n)
+    q, k = (torch.from_numpy(rng.normal(0, 0.5, (2, n, 8))
+                             .astype(np.float32)) for _ in range(2))
+    v, dout = (torch.from_numpy(rng.normal(0, 1, (2, n, 64))
+                                .astype(np.float32)) for _ in range(2))
+    out = sgam_flash.position_attention_plain(q, k, v)
+    chunked = sgam_flash.position_attention_plain_chunked(q, k, v, chunk)
+    assert chunked.shape == out.shape
+    assert (chunked - out).abs().max() <= 1e-6 * out.abs().max()
+    delta = sgam_flash.attention_delta_plain(out, dout)
+    assert delta.shape == (2, n) and delta.dtype == torch.float32
+    np.testing.assert_allclose(delta.numpy(), (dout * out).sum(-1).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    got = sgam_flash.position_attention_bwd_from_delta(q, k, v, out, dout)
+    want = sgam_flash.position_attention_bwd_plain(q, k, v, dout)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-6 * max(float(w.abs().max()), 1.0)
