@@ -8,7 +8,10 @@ Phases, each of which raises (exit code 1) on failure:
 1. device: a CUDA device must be present; prints nvidia-smi's name and
    power limit of device 0;
 2. build: compiles the port's CUDA kernels from ``sradsgan_tpu_torch/csrc``
-   (one nvcc per source, all at once);
+   (one nvcc per source, all at once), counts the tensor-core and
+   asynchronous-copy instructions of the attention kernels and the fused
+   RAB tail, and prints the launches the two row-strip kernels take at the
+   main path's shapes (strips an image of each launch, shared bytes);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the train step's and the serving path's shapes, float32 and bfloat16,
    every output, with its error and its time beside the plain version's
@@ -17,7 +20,9 @@ Phases, each of which raises (exit code 1) on failure:
    over the peak rate of their type, or its exponentials over the special
    function units' rate, whichever is largest) and, where one PyTorch call
    computes the same function, that call's time in float32 and bfloat16;
-   the fused RAB tail also beside the unfused composition it replaces; the
+   the gate backward also without its dw stage and beside the plain dw
+   contraction that stage replaced; the fused RAB tail also beside the
+   unfused composition it replaces, cold as a ratio; the
    attention forward also at one 216^2 image (N = 46 656) against the plain
    version taken in blocks of queries;
 4. serving: the full-width SRADSGAN x4 generator (12 groups x 3 RABs x 64
@@ -217,9 +222,9 @@ def phase_build() -> None:
 def _sass_counts() -> None:
     """Where the toolkit has cuobjdump: how many tensor-core (HGMMA: wgmma;
     HMMA: bf16 and TF32 mma.sync) and asynchronous-copy (LDGSTS: cp.async)
-    instructions each attention kernel was compiled to, summed over its
-    bf16 and its float32 instantiations.  Either kind without them is a
-    failure."""
+    instructions each attention kernel and the fused RAB tail (its fuse
+    product) were compiled to, summed over a kernel's bf16 and its float32
+    instantiations.  Either kind without them is a failure."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
@@ -234,7 +239,8 @@ def _sass_counts() -> None:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             kernel = next((k for k in ("position_attention_kernel",
-                                       "attention_bwd_kernel")
+                                       "attention_bwd_kernel",
+                                       "rab_tail_kernel")
                            if k in name), None)
             dtype = "bf16" if "__nv_bfloat16" in name else "f32"
             current = (kernel, dtype) if kernel else None
@@ -252,12 +258,35 @@ def _sass_counts() -> None:
         if not ((c["HGMMA"] or c["HMMA"]) and c["LDGSTS"]):
             fail(f"{kernel} {dtype} was compiled without tensor-core or "
                  "asynchronous-copy instructions")
-    if len(counts) != 4:
-        fail(f"sass: found {sorted(counts)} of the attention kernels")
+    if len(counts) != 6:
+        fail(f"sass: found {sorted(counts)} of the tensor-core kernels")
+    if not counts[("rab_tail_kernel", "bf16")]["HMMA"]:
+        fail("the bf16 fused RAB tail was compiled without tensor-core "
+             "products for its fuse")
     for kernel in ("position_attention_kernel", "attention_bwd_kernel"):
         if not counts[(kernel, "bf16")]["HGMMA"]:
             fail(f"the bf16 {kernel} was compiled without warpgroup "
                  "products")
+
+
+def phase_plans() -> dict:
+    """The launches the two row-strip kernels take at the main path's
+    shapes, as their C side chooses them from the card's SM count and a
+    block's shared memory: bands an image of the stencils' launch, strips
+    an image of the statistics launch and of the outputs' launch."""
+    device = torch.device("cuda", 0)
+    plans = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).rpartition(".")[2]
+        for shape in ((16, 64, 54, 54), (16, 256, 27, 27)):
+            plans[f"spatial_gate_bwd {name} {shape}"] = _build.plan(
+                "sg_spatial_gate_bwd", device, shape, dtype)
+        for b in (16, 4, 1):
+            plans[f"rab_tail {name} {(b, 64, 54, 54)}"] = _build.plan(
+                "sg_rab_tail", device, (b, 64, 4, 54, 54), dtype)
+    for case, plan in plans.items():
+        print(f"strips: {case}: {plan}")
+    return plans
 
 
 def _randn(shape, dtype, seed, scale=1.0):
@@ -282,18 +311,19 @@ def _cold(call, *inputs):
     return run
 
 
-def _gate_bwd_kernel(x, w, g):
-    """K4 as the step runs it: the kernel, then the dw contraction from its
-    planes; returns (dx, dw, mean, max)."""
-    dx, ds, mean, mx = spatial_gate.spatial_gate_bwd_cuda(x, w, g)
-    return (dx, spatial_gate.dw_contraction(
-        ds, torch.stack([mean, mx], dim=1), w), mean, mx)
-
-
-def _gate_bwd_plain(x, w, g):
+def _dw_contraction_case(x, w):
+    """The plain dw contraction alone, on planes of x's shape: one
+    ``torch.stack`` and one cuDNN weight-gradient call, what the gate's
+    backward ran after its kernel before the kernel summed dw itself.
+    Returns (call, inputs) for :func:`cuda_ms` and :func:`_cold`."""
     x32 = x.float()
-    return (*spatial_gate.spatial_gate_bwd_plain(x, w, g), x32.mean(1),
-            x32.amax(1))
+    inputs = (_randn(x32[:, 0].shape, torch.float32, 21), x32.mean(1),
+              x32.amax(1))
+
+    def call(ds, mean, mx):
+        return spatial_gate.dw_contraction(
+            ds, torch.stack([mean, mx], dim=1), w)
+    return call, inputs
 
 
 def _rab_tail_params(c: int):
@@ -380,7 +410,8 @@ def _kernel_cases():
     ``flops`` the operations of the function on these inputs; ``extra`` maps
     a label to another zero-argument call timed beside the kernel (the
     bytes-bound kernels with their inputs out of the L2, see :func:`_cold`;
-    the unfused composition; the library call is timed apart), and for the
+    the gate backward without its dw stage and the plain dw contraction it
+    replaced; the unfused composition; the library call is timed apart), and for the
     attention kernels ``"exps"`` to the exponentials the function needs (one
     a query-key pair) and ``"iters"`` to the calls per timing."""
     w = _randn((1, 2, 7, 7), torch.float32, 1, scale=0.3)
@@ -403,13 +434,28 @@ def _kernel_cases():
                    2 * n * es + 98 * 4, 3 * n + px * 2 * 98,
                    {"cold_ms": _cold(
                        lambda x: spatial_gate.spatial_gate_cuda(x, w), x)})
-            if shape[0] == 16:
-                yield ("spatial_gate_bwd", "", dtype, shape,
-                       lambda x=x, g=g: _gate_bwd_kernel(x, w, g),
-                       lambda x=x, g=g: _gate_bwd_plain(x, w, g),
-                       3 * n * es + 2 * 98 * 4, 8 * n + px * 6 * 98,
-                       {"cold_ms": _cold(
-                           lambda x, g: _gate_bwd_kernel(x, w, g), x, g)})
+            # K4 whole (dx and dw), then its parts apart: the kernel with
+            # its dw stage left out, and the plain contraction
+            contraction, planes = _dw_contraction_case(x, w)
+            yield ("spatial_gate_bwd", "", dtype, shape,
+                   lambda x=x, g=g:
+                   spatial_gate.spatial_gate_bwd_cuda(x, w, g),
+                   lambda x=x, g=g:
+                   spatial_gate.spatial_gate_bwd_plain(x, w, g),
+                   3 * n * es + 2 * 98 * 4, 8 * n + px * 6 * 98,
+                   {"cold_ms": _cold(
+                       lambda x, g:
+                       spatial_gate.spatial_gate_bwd_cuda(x, w, g), x, g),
+                    "without_dw_ms": lambda x=x, g=g:
+                    spatial_gate.spatial_gate_bwd_cuda(x, w, g,
+                                                       with_dw=False),
+                    "without_dw_cold_ms": _cold(
+                        lambda x, g: spatial_gate.spatial_gate_bwd_cuda(
+                            x, w, g, with_dw=False), x, g),
+                    "plain_dw_contraction_ms":
+                    lambda c=contraction, p=planes: c(*p),
+                    "plain_dw_contraction_cold_ms":
+                    _cold(contraction, *planes)})
         # the fused RAB tail at the train step's, the serving request's and
         # the validation sweep's shapes and a ragged one
         for shape in ((16, 64, 54, 54), (4, 64, 54, 54), (1, 64, 54, 54),
@@ -538,6 +584,9 @@ def phase_kernels() -> dict:
         ms, eager_ms = ((a + b) / 2 for a, b in zip(k1, k2))
         plain_ms, plain_eager_ms = ((a + b) / 2 for a, b in zip(p1, p2))
         extras = {key: cuda_ms(fn)[0] for key, fn in extra.items()}
+        if "composition_cold_ms" in extras:  # under 1: the fused tail wins
+            extras["cold_over_composition_cold"] = (
+                extras["cold_ms"] / extras["composition_cold_ms"])
         terms = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
                  "products": flops / PEAK_FLOPS[dtype] * 1e3,
                  "exponentials": exps / exps_per_s * 1e3}
@@ -574,7 +623,7 @@ def phase_kernels() -> dict:
         case = f"{str(dtype).rpartition('.')[2]} {'x'.join(map(str, shape))}"
         record[name]["cases"][case] = {
             "max_rel_err": max(rels), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_term": bound_term}
+            "bound_ms": bound_ms, "bound_term": bound_term, **extras}
 
     # the library yardstick of K3 and K5, at their first case's shape
     for dtype in (torch.float32, torch.bfloat16):
@@ -1157,6 +1206,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()
     phase_build()
+    plans = phase_plans()
     record = phase_kernels()
     big = record["position_attention"]["cases"]
     serving = phase_serving(smi, {
@@ -1193,7 +1243,7 @@ def main() -> int:
                       "validation_batch": validation,
                       "cli_train": {k: v for k, v in cli_train.items()
                                     if k != "launches"},
-                      "card": smi}))
+                      "strips": plans, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -41,12 +41,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sg_avg_max_pool": [_P, _P, _P, _I, _I, _I, _P],
     "sg_spatial_gate": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sg_spatial_gate_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _P],
+    "sg_spatial_gate_bwd": [_P] * 7 + [_I] * 10 + [_P],
+    "sg_spatial_gate_bwd_plan": [_I] * 5 + [_P],
     "sg_position_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sg_position_attention_bwd": [_P] * 10 + [_I] * 5 + [_P],
-    "sg_rab_tail": [_P] * 14 + [_I] * 6 + [_P],
+    "sg_rab_tail": [_P] * 14 + [_I] * 10 + [_P],
+    "sg_rab_tail_plan": [_I] * 6 + [_P],
 }
+PLAN_FIELDS = ("bands", "stats_strips", "stream_strips", "slices",
+               "shared_bytes", "partial_rows")
 
 
 def sources() -> list[Path]:
@@ -160,6 +163,33 @@ def check_input(op: str, t: torch.Tensor, ndim: int) -> None:
     if not 0 < t.numel() < 2 ** 31:
         raise ValueError(f"{op}: {t.numel()} elements is outside the "
                          "kernel's range")
+
+
+@functools.lru_cache(maxsize=256)
+def plan(name: str, device: torch.device, dims: tuple,
+         dtype: torch.dtype) -> dict:
+    """The launches a row-strip kernel (``name``: "sg_spatial_gate_bwd" with
+    dims (B, C, H, W), or "sg_rab_tail" with (B, C, hidden, H, W)) takes at
+    this shape, as the C side chooses them from the card's SM count and a
+    block's shared memory: bands an image of the stencils' launch, strips
+    an image of the statistics launch and of the outputs' launch, channel
+    slices, the most shared bytes a block asks for, and the rows of partial
+    sums the caller provides room for.  Asked once a shape and kept.
+    Raises where the kernel takes no such shape."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    with torch.cuda.device(device):
+        err = getattr(library(), name + "_plan")(*dims, DTYPE_CODES[dtype],
+                                                 out)
+    if err != 0:
+        raise ValueError(f"{name}: no launch fits a {dtype} tensor of dims "
+                         f"{dims} (a row of the image has to fit a block's "
+                         "shared memory)")
+    return dict(zip(PLAN_FIELDS, out))
+
+
+def plan_args(p: dict) -> tuple:
+    """What a row-strip kernel's launch function takes of its plan."""
+    return p["bands"], p["stats_strips"], p["stream_strips"], p["slices"]
 
 
 def launch(name: str, device: torch.device, *args) -> None:

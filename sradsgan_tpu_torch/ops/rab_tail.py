@@ -17,9 +17,9 @@ The backward is hand-written on the saved byproducts, as the JAX package's
 is jnp outside its kernel (``_bwd_jnp``): plain PyTorch, except that on a
 CUDA tensor its SLAM part, which is exactly the spatial gate's backward of
 (u, slam_w, d(u * gate_s)), launches that op's backward kernel
-(``csrc/spatial_gate_bwd.cu``).  First order only, as in JAX: generators
-use it, the discriminator (whose gradient penalty needs a second order)
-never does, and a second order raises.
+(``csrc/spatial_gate_bwd.cu``), which gives du and dslam_w.  First order
+only, as in JAX: generators use it, the discriminator (whose gradient
+penalty needs a second order) never does, and a second order raises.
 """
 
 from __future__ import annotations
@@ -33,10 +33,10 @@ from torch.autograd.function import once_differentiable
 from sradsgan_tpu_torch.ops import _build, plain_dtype
 from sradsgan_tpu_torch.ops.spatial_gate import (KERNEL_SIZE, PAD,
                                                  dw_contraction,
-                                                 spatial_gate_bwd_cuda)
+                                                 spatial_gate_bwd_cuda,
+                                                 strip_planes)
 
-MAX_CHANNELS = 256   # csrc/rab_tail.cu: what fits a block's shared memory
-MAX_BATCH = 65535    # the kernel's grid runs the batch along z
+MAX_CHANNELS = 256   # csrc/rab_tail.cu: W_fuse's slab in shared memory
 
 
 def _mlp(v: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
@@ -72,6 +72,51 @@ def rab_tail_plain(t: torch.Tensor, x_res: torch.Tensor, w1: torch.Tensor,
     return out, gate_c, gate_s, mean_u, max_u, avg_t, max_t
 
 
+def rab_tail_plain_strips(t: torch.Tensor, x_res: torch.Tensor,
+                          w1: torch.Tensor, w2: torch.Tensor,
+                          slam_w: torch.Tensor, fuse_w: torch.Tensor,
+                          fuse_b: torch.Tensor, rows: int
+                          ) -> Tuple[torch.Tensor, ...]:
+    """The seven outputs of :func:`rab_tail_plain`, computed the way the
+    kernel in ``csrc/rab_tail.cu`` cuts the work: by strips of ``rows``
+    whole rows, the pools combined from per-strip sums and maxima in strip
+    order, the statistics of u on a 3-row halo with zeros outside the
+    image.  A second reference for the kernel's halo arithmetic; nothing
+    on the main path calls it."""
+    dt = plain_dtype(t)
+    with torch.autocast(t.device.type, enabled=False):
+        t32 = t.to(dt)
+        w1, w2, slam_w, fuse_w, fuse_b = (
+            p.to(dt) for p in (w1, w2, slam_w, fuse_w, fuse_b))
+        b, c, h, w = t32.shape
+        starts = range(0, h, rows)
+        total = t32.new_zeros((b, c))
+        max_t = t32.new_full((b, c), float("-inf"))
+        for r0 in starts:
+            strip = t32[:, :, r0:r0 + rows]
+            total = total + strip.sum((2, 3))
+            max_t = torch.maximum(max_t, strip.amax((2, 3)))
+        avg_t = total / (h * w)
+        gate_c = torch.sigmoid(_mlp(avg_t, w1, w2) + _mlp(max_t, w1, w2))
+        out = torch.empty_like(t32)
+        gate_s, mean_u, max_u = (t32.new_empty((b, h, w)) for _ in range(3))
+        for r0 in starts:
+            r1 = min(h, r0 + rows)
+            e0, e1 = max(0, r0 - PAD), min(h, r1 + PAD)
+            u = t32[:, :, e0:e1] * gate_c[:, :, None, None]
+            stats = torch.stack([u.mean(1), u.amax(1)], dim=1)
+            mean_u[:, r0:r1] = stats[:, 0, r0 - e0:r1 - e0]
+            max_u[:, r0:r1] = stats[:, 1, r0 - e0:r1 - e0]
+            gate = torch.sigmoid(F.conv2d(
+                strip_planes(stats, e0, r0 - PAD, r1 + PAD), slam_w,
+                padding=(0, PAD)))
+            gate_s[:, r0:r1] = gate[:, 0]
+            y = F.conv2d(u[:, :, r0 - e0:r1 - e0] * gate,
+                         fuse_w.t()[:, :, None, None], fuse_b)
+            out[:, :, r0:r1] = y + x_res[:, :, r0:r1].to(dt)
+    return out.to(t.dtype), gate_c, gate_s, mean_u, max_u, avg_t, max_t
+
+
 def _check_param(name: str, p: torch.Tensor, shape: tuple,
                  t: torch.Tensor) -> None:
     if (tuple(p.shape) != shape or p.dtype != torch.float32
@@ -90,20 +135,21 @@ def rab_tail_cuda(t: torch.Tensor, x_res: torch.Tensor, w1: torch.Tensor,
     _build.check_input("rab_tail", t, 4)
     _build.check_like("rab_tail", x_res, t, "x_res")
     b, c, h, w = t.shape
-    if c > MAX_CHANNELS or b > MAX_BATCH:
+    if c > MAX_CHANNELS:
         raise ValueError(f"rab_tail: the kernel takes at most {MAX_CHANNELS} "
-                         f"channels and a batch of {MAX_BATCH}, got "
-                         f"{tuple(t.shape)}")
+                         f"channels, got {tuple(t.shape)}")
     hidden = w1.shape[1] if w1.dim() == 2 else 0
-    if hidden < 1:
-        raise ValueError(f"rab_tail: w1 must be (C, hidden), got "
-                         f"{tuple(w1.shape)}")
+    if not 1 <= hidden <= c:
+        raise ValueError(f"rab_tail: w1 must be (C, hidden) with 1 <= hidden "
+                         f"<= C, got {tuple(w1.shape)}")
     for name, p, shape in (("w1", w1, (c, hidden)), ("w2", w2, (hidden, c)),
                            ("slam_w", slam_w,
                             (1, 2, KERNEL_SIZE, KERNEL_SIZE)),
                            ("fuse_w", fuse_w, (c, c)),
                            ("fuse_b", fuse_b, (c,))):
         _check_param(name, p, shape, t)
+    plan = _build.plan("sg_rab_tail", t.device, (b, c, hidden, h, w),
+                       t.dtype)
     out = torch.empty_like(t)
     gate_c, avg_t, max_t = torch.empty((3, b, c), device=t.device,
                                        dtype=torch.float32)
@@ -114,7 +160,8 @@ def rab_tail_cuda(t: torch.Tensor, x_res: torch.Tensor, w1: torch.Tensor,
                   fuse_w.data_ptr(), fuse_b.data_ptr(), out.data_ptr(),
                   gate_c.data_ptr(), gate_s.data_ptr(), mean_u.data_ptr(),
                   max_u.data_ptr(), avg_t.data_ptr(), max_t.data_ptr(), b, c,
-                  hidden, h, w, _build.DTYPE_CODES[t.dtype])
+                  hidden, h, w, _build.DTYPE_CODES[t.dtype],
+                  *_build.plan_args(plan))
     rab_tail_cuda.launches += 1
     return out, gate_c, gate_s, mean_u, max_u, avg_t, max_t
 
@@ -151,9 +198,8 @@ def rab_tail_bwd(t: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         dwgated = F.conv2d(g32, fwf[:, :, None, None])      # d(u * gate_s)
 
         # SLAM backward: the spatial gate's backward of (u, slam_w, dwgated)
-        planes = torch.stack([mean_u, max_u], dim=1)
         if t.device.type == "cuda":
-            du, ds, _, _ = spatial_gate_bwd_cuda(u, slam_w, dwgated)
+            du, dslam_w = spatial_gate_bwd_cuda(u, slam_w, dwgated)
         else:
             ds = (dwgated * u).sum(1) * gate_s * (1.0 - gate_s)
             dplanes = F.conv_transpose2d(ds[:, None], slam_w.to(dt_),
@@ -162,7 +208,8 @@ def rab_tail_bwd(t: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             ties_u = is_max_u.sum(1).clamp_min(1.0)
             du = (dwgated * gate_s[:, None] + dplanes[:, :1] / c
                   + (dplanes[:, 1] / ties_u)[:, None] * is_max_u)
-        dslam_w = dw_contraction(ds, planes, slam_w)
+            dslam_w = dw_contraction(
+                ds, torch.stack([mean_u, max_u], dim=1), slam_w)
 
         # CLAM backward; z = mlp(avg) + mlp(max), one shared MLP
         dgate_c = (du * t32).sum((2, 3))                    # (B, C)

@@ -3,8 +3,9 @@
 Counterpart of ``sradsgan_tpu/ops/spatial_gate.py`` and the Pallas kernels
 in ``sradsgan_tpu/ops/pallas/slam.py``.  On a CUDA tensor the forward
 launches the hand-written kernel in ``csrc/spatial_gate.cu`` and the
-backward the one in ``csrc/spatial_gate_bwd.cu``; on a CPU tensor they run
-:func:`spatial_gate_plain` and :func:`spatial_gate_bwd_plain`.  The gate
+backward the one in ``csrc/spatial_gate_bwd.cu`` (dx and dw in one call);
+on a CPU tensor they run :func:`spatial_gate_plain` and
+:func:`spatial_gate_bwd_plain`.  The gate
 math runs in float32 whatever x's dtype, as in the JAX package; the stat
 planes are zero-padded outside the image (SAME conv).
 
@@ -71,6 +72,67 @@ def spatial_gate_bwd_plain(x: torch.Tensor, w: torch.Tensor,
     return dx.to(x.dtype), dw
 
 
+def strip_planes(planes: torch.Tensor, e0: int, lo: int, hi: int
+                 ) -> torch.Tensor:
+    """Rows [lo, hi) of the image from ``planes`` (B, P, E, W), which holds
+    the image's rows from ``e0`` on; rows outside the image are zero (the
+    SAME convolution's padding)."""
+    b, p, e, w = planes.shape
+    out = planes.new_zeros((b, p, hi - lo, w))
+    a, z = max(lo, e0), min(hi, e0 + e)
+    if a < z:
+        out[:, :, a - lo:z - lo] = planes[:, :, a - e0:z - e0]
+    return out
+
+
+def spatial_gate_bwd_plain_strips(x: torch.Tensor, w: torch.Tensor,
+                                  g: torch.Tensor, rows: int
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) as :func:`spatial_gate_bwd_plain`, computed the way the
+    kernel in ``csrc/spatial_gate_bwd.cu`` cuts the work: by strips of
+    ``rows`` whole rows, each with its halos (statistics 6 rows beyond the
+    strip, the gate and ds 3, zeros outside the image) and its own partial
+    of dw, the partials summed in strip order.  A second reference for the
+    kernel's halo arithmetic; nothing on the main path calls it."""
+    k = KERNEL_SIZE
+    with torch.autocast(x.device.type, enabled=False):
+        x32, g32, w32 = (t.to(plain_dtype(x)) for t in (x, g, w))
+        b, c, h, wd = x32.shape
+        flipped = w32[0][:, None].flip(-1, -2)       # (2, 1, k, k)
+        dx = torch.empty_like(x32)
+        dw = torch.zeros_like(w32)
+        for r0 in range(0, h, rows):
+            r1 = min(h, r0 + rows)
+            e0, e1 = max(0, r0 - 2 * PAD), min(h, r1 + 2 * PAD)
+            xe = x32[:, :, e0:e1]
+            mx = xe.amax(1)
+            stats = torch.stack([xe.mean(1), mx], dim=1)
+            dgate = (g32[:, :, e0:e1] * xe).sum(1, keepdim=True)
+            # the gate and ds where they exist, 3 rows beyond the strip
+            g0, g1 = max(0, r0 - PAD), min(h, r1 + PAD)
+            gate = torch.sigmoid(F.conv2d(
+                strip_planes(stats, e0, g0 - PAD, g1 + PAD), w32,
+                padding=(0, PAD)))
+            ds = dgate[:, :, g0 - e0:g1 - e0] * gate * (1.0 - gate)
+            ds_halo = strip_planes(ds, g0, r0 - PAD, r1 + PAD)
+            dplanes = F.conv2d(ds_halo, flipped, padding=(0, PAD))
+            xs = x32[:, :, r0:r1]
+            is_max = (xs == mx[:, None, r0 - e0:r1 - e0]).to(x32.dtype)
+            ties = is_max.sum(1).clamp_min(1.0)
+            dx[:, :, r0:r1] = (
+                g32[:, :, r0:r1] * gate[:, :, r0 - g0:r1 - g0]
+                + dplanes[:, :1] / c + (dplanes[:, 1] / ties)[:, None] * is_max)
+            # this strip's part of dw: its ds against the shifted planes
+            halo = F.pad(strip_planes(stats, e0, r0 - PAD, r1 + PAD),
+                         (PAD, PAD))
+            own = ds[:, :, r0 - g0:r1 - g0]
+            part = torch.stack([
+                (own * halo[:, :, dy:dy + r1 - r0, dxx:dxx + wd]).sum((0, 2, 3))
+                for dy in range(k) for dxx in range(k)], dim=1)
+            dw = dw + part.reshape(1, 2, k, k)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
 def _check_weight(op: str, x: torch.Tensor, w: torch.Tensor) -> None:
     if (w.shape != (1, 2, KERNEL_SIZE, KERNEL_SIZE)
             or w.dtype != torch.float32 or w.device != x.device
@@ -95,23 +157,34 @@ def spatial_gate_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 spatial_gate_cuda.launches = 0
 
 
-def spatial_gate_bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
-                          ) -> Tuple[torch.Tensor, ...]:
-    """The backward kernel: (dx, ds, mean, max), the last three (B, H, W)
-    float32 planes for :func:`dw_contraction`."""
+def spatial_gate_bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                          with_dw: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel: (dx, dw), dw float32 like w, summed in a fixed
+    order (two calls give the same bits).  ``with_dw=False`` leaves the
+    kernel's dw stage out and returns dw unwritten: for timing that stage
+    apart, nothing else."""
     _build.check_input("spatial_gate_bwd", x, 4)
     _build.check_like("spatial_gate_bwd", g, x, "g")
     _check_weight("spatial_gate_bwd", x, w)
     b, c, h, wd = x.shape
+    plan = _build.plan("sg_spatial_gate_bwd", x.device, (b, c, h, wd),
+                       x.dtype)
     dx = torch.empty_like(x)
-    ds, gate, mean, mx = torch.empty((4, b, h, wd), device=x.device,
-                                     dtype=torch.float32)
+    dw = torch.empty_like(w)
+    # scratch: a row of dw partials for each block of the stencils' launch,
+    # and the seven per-pixel planes that pass between the launches
+    partials = torch.empty(
+        (plan["partial_rows"], 2 * KERNEL_SIZE * KERNEL_SIZE),
+        device=x.device, dtype=torch.float32)
+    planes = torch.empty((7, b, h, wd), device=x.device, dtype=torch.float32)
     _build.launch("sg_spatial_gate_bwd", x.device, x.data_ptr(),
-                  g.data_ptr(), w.data_ptr(), ds.data_ptr(), gate.data_ptr(),
-                  mean.data_ptr(), mx.data_ptr(), dx.data_ptr(), b, c, h, wd,
-                  _build.DTYPE_CODES[x.dtype])
+                  g.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                  partials.data_ptr(), planes.data_ptr(), b, c, h, wd,
+                  _build.DTYPE_CODES[x.dtype], *_build.plan_args(plan),
+                  int(with_dw))
     spatial_gate_bwd_cuda.launches += 1
-    return dx, ds, mean, mx
+    return dx, dw
 
 
 spatial_gate_bwd_cuda.launches = 0
@@ -124,8 +197,8 @@ def _gate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class SpatialGateBwdFn(torch.autograd.Function):
-    """(x, w, g) -> (dx, dw).  Forward: the backward kernel and the dw
-    contraction (plain on the CPU).  Backward: autograd of
+    """(x, w, g) -> (dx, dw).  Forward: the backward kernel, dw included
+    (plain on the CPU).  Backward: autograd of
     :func:`spatial_gate_bwd_plain` (``slam.py:_gate_bwd_bwd``)."""
 
     @staticmethod
@@ -134,8 +207,7 @@ class SpatialGateBwdFn(torch.autograd.Function):
         ctx.save_for_backward(x, w, g)
         if x.device.type == "cpu":
             return spatial_gate_bwd_plain(x, w, g)
-        dx, ds, mean, mx = spatial_gate_bwd_cuda(x, w, g)
-        return dx, dw_contraction(ds, torch.stack([mean, mx], dim=1), w)
+        return spatial_gate_bwd_cuda(x, w, g)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")

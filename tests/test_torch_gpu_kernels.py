@@ -9,7 +9,12 @@ blocks), at energies of +-30, with a whole key tile of equal energies and
 twice over for equal bits; the fused RAB tail at
 ragged tiles, images under its halo, 16 and 256 channels, with its backward
 and inside a RAB; the gate's double backward
-on the card; and the dispatch that sends CUDA tensors to the kernels.  Marked ``gpu``; they skip
+on the card; and the dispatch that sends CUDA tensors to the kernels.  The
+two row-strip kernels (gate backward, fused RAB tail) also at heights
+under and off their strips and bands, odd widths, 1 to 256 channels,
+batches from 1 to 37, a 216x216 image, planes and views off the 16-byte
+grid, tied maxima, saturated gates, twice over for equal bits, and against
+the strip-wise plain helpers.  Marked ``gpu``; they skip
 where no CUDA device is present.  This file imports neither JAX nor the
 JAX package, so on a machine without them run it as
 
@@ -104,14 +109,110 @@ def test_gate_bwd_kernel(cuda, dtype, shape, ties):
     x = x.to(dtype)
     g = _randn(shape, dtype, cuda, seed=5)
     w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
-    dx, ds, mean, mx = spatial_gate.spatial_gate_bwd_cuda(x, w, g)
-    dw = spatial_gate.dw_contraction(ds, torch.stack([mean, mx], 1), w)
+    dx, dw = spatial_gate.spatial_gate_bwd_cuda(x, w, g)
+    dx_p, dw_p = spatial_gate.spatial_gate_bwd_plain(x, w, g)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    _close(dx, dx_p, dtype)
+    _close(dw, dw_p, dtype)
+
+
+# heights under a band and off the strips, odd widths, C = 1, 3, 64, 256,
+# B = 1 to 37 (strips of one row up to several), the discriminator's
+# shape, and images of a few hundred rows or columns
+STRIP_SHAPES = [(1, 1, 3, 5), (2, 3, 5, 9), (1, 64, 13, 17), (3, 64, 27, 31),
+                (1, 256, 27, 27), (16, 256, 27, 27), (1, 64, 54, 54),
+                (4, 64, 54, 54), (8, 64, 54, 54), (16, 64, 54, 54),
+                (37, 64, 54, 54), (1, 64, 216, 216), (2, 8, 300, 70),
+                (1, 256, 60, 60)]
+
+
+def _off_grid(t):
+    """A contiguous copy of t that starts one element off the 16-byte grid."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+def test_gate_bwd_kernel_over_strip_shapes(cuda, dtype, shape):
+    """dx and dw against the plain version; a second launch gives the same
+    bits (dw is summed in a fixed order, no atomics)."""
+    x = _randn(shape, dtype, cuda)
+    g = _randn(shape, dtype, cuda, seed=5)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    dx, dw = spatial_gate.spatial_gate_bwd_cuda(x, w, g)
+    dx2, dw2 = spatial_gate.spatial_gate_bwd_cuda(x, w, g)
     dx_p, dw_p = spatial_gate.spatial_gate_bwd_plain(x, w, g)
     torch.cuda.synchronize()
     _close(dx, dx_p, dtype)
     _close(dw, dw_p, dtype)
-    _close(mean, x.float().mean(1), torch.float32)
-    assert torch.equal(mx, x.float().amax(1))
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("rows", [1, 5])
+@pytest.mark.parametrize("shape", [(2, 8, 11, 13), (3, 64, 27, 31),
+                                   (1, 64, 216, 216)])
+def test_gate_bwd_kernel_matches_the_strip_helper(cuda, shape, rows):
+    """The second reference: the same cutting into strips with halos, in
+    plain PyTorch, with tied channel maxima."""
+    x = _randn(shape, torch.float32, cuda).mul(1.5).round()
+    g = _randn(shape, torch.float32, cuda, seed=5)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    got = spatial_gate.spatial_gate_bwd_cuda(x, w, g)
+    want = spatial_gate.spatial_gate_bwd_plain_strips(x, w, g, rows)
+    torch.cuda.synchronize()
+    for a, r in zip(got, want):
+        _close(a, r, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 64, 54, 54), (3, 64, 27, 31),
+                                   (2, 256, 27, 27), (1, 16, 216, 216)])
+def test_gate_bwd_kernel_takes_views_off_the_16_byte_grid(cuda, dtype,
+                                                          shape):
+    """x and g one element off the grid (and so apart in phase from dx); in
+    bf16 the 54x54 and 27x31 planes are no multiple of 16 bytes either, so
+    odd and even channels start at different phases."""
+    x = _off_grid(_randn(shape, dtype, cuda))
+    g = _off_grid(_randn(shape, dtype, cuda, seed=5))
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    dx, dw = spatial_gate.spatial_gate_bwd_cuda(x, w, g)
+    dx_p, dw_p = spatial_gate.spatial_gate_bwd_plain(x, w, g)
+    torch.cuda.synchronize()
+    _close(dx, dx_p, dtype)
+    _close(dw, dw_p, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gate_bwd_kernel_with_saturated_gates(cuda, dtype):
+    """Taps six times the usual: pre-activations of +-30 and beyond, gates
+    that round to 0 and 1.  ds all but vanishes, so dw is held to the bar
+    of a gradient of order one."""
+    shape = (4, 64, 54, 54)
+    x = _randn(shape, dtype, cuda)
+    g = _randn(shape, dtype, cuda, seed=5)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=1.8)
+    planes = torch.stack([x.float().mean(1), x.float().amax(1)], 1)
+    assert torch.nn.functional.conv2d(planes, w, padding=3).abs().max() > 30
+    dx, dw = spatial_gate.spatial_gate_bwd_cuda(x, w, g)
+    dx_p, dw_p = spatial_gate.spatial_gate_bwd_plain(x, w, g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dx.float()).all() and torch.isfinite(dw).all()
+    _close(dx, dx_p, dtype)
+    _close(dw, dw_p, dtype, floor=1.0)
+
+
+def test_gate_bwd_kernel_without_its_dw_stage_gives_the_same_dx(cuda):
+    x = _randn((2, 64, 54, 54), torch.float32, cuda)
+    g = _randn((2, 64, 54, 54), torch.float32, cuda, seed=5)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    dx, _ = spatial_gate.spatial_gate_bwd_cuda(x, w, g)
+    dx_only, _ = spatial_gate.spatial_gate_bwd_cuda(x, w, g, with_dw=False)
+    assert torch.equal(dx, dx_only)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -234,8 +335,8 @@ def _rab_tail_args(shape, dtype, device, ties=False):
             _randn((c,), torch.float32, device, 15, 0.05))
 
 
-# ragged tiles, H or W under the 3-pixel halo, C = 16 (one hidden unit,
-# half a pass of the fuse) and 256 (eight passes), B = 1
+# ragged strips, H or W under the 3-pixel halo, C = 16 (one hidden unit,
+# a quarter of a pass of the fuse) and 256 (four passes), B = 1
 RAB_TAIL_SHAPES = [(1, 16, 1, 1), (1, 16, 2, 5), (2, 64, 17, 33),
                    (1, 64, 54, 54), (2, 256, 20, 17), (3, 48, 16, 16),
                    (1, 32, 70, 3)]
@@ -256,6 +357,75 @@ def test_rab_tail_kernel(cuda, dtype, shape):
     t32 = args[0].float()
     assert torch.equal(got[6], want[6])
     assert torch.equal(got[4], (t32 * got[1][:, :, None, None]).amax(1))
+
+
+def _check_rab_tail(args, dtype):
+    """All seven outputs against the plain version, the maxima exact, and a
+    second launch for equal bits."""
+    got = rab_tail.rab_tail_cuda(*args)
+    again = rab_tail.rab_tail_cuda(*args)
+    want = rab_tail.rab_tail_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype
+    for g, r in zip(got, want):
+        _close(g, r, dtype)
+    t32 = args[0].float()
+    assert torch.equal(got[6], want[6])
+    assert torch.equal(got[4], (t32 * got[1][:, :, None, None]).amax(1))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+def test_rab_tail_kernel_over_strip_shapes(cuda, dtype, shape, ties):
+    """``ties``: a few integer values of t, so that maxima are tied over
+    H, W (the CLAM's pool) and over C (the SLAM's)."""
+    args = _rab_tail_args(shape, dtype, cuda, ties)
+    if ties and shape[1] > 1 and shape[2] * shape[3] > 100:
+        t = args[0].float()
+        assert ((t == t.amax(1, keepdim=True)).sum(1) > 1).any()
+        assert ((t == t.amax((2, 3), keepdim=True)).sum((2, 3)) > 1).any()
+    _check_rab_tail(args, dtype)
+
+
+@pytest.mark.parametrize("rows", [1, 5])
+@pytest.mark.parametrize("shape", [(2, 16, 11, 13), (3, 64, 27, 31),
+                                   (1, 64, 216, 216)])
+def test_rab_tail_kernel_matches_the_strip_helper(cuda, shape, rows):
+    args = _rab_tail_args(shape, torch.float32, cuda, ties=True)
+    got = rab_tail.rab_tail_cuda(*args)
+    want = rab_tail.rab_tail_plain_strips(*args, rows)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        _close(g, r, torch.float32)
+    assert torch.equal(got[6], want[6])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 64, 54, 54), (3, 64, 27, 31),
+                                   (1, 48, 216, 216)])
+def test_rab_tail_kernel_takes_views_off_the_16_byte_grid(cuda, dtype,
+                                                          shape):
+    args = _rab_tail_args(shape, dtype, cuda)
+    _check_rab_tail((_off_grid(args[0]), _off_grid(args[1])) + args[2:],
+                    dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rab_tail_kernel_with_saturated_gates(cuda, dtype):
+    """Both gates driven to 0 and 1: the SLAM's taps six times the usual
+    (pre-activations beyond +-30), the CLAM's second layer forty times."""
+    args = list(_rab_tail_args((4, 64, 54, 54), dtype, cuda))
+    args[3] = args[3] * 40.0
+    args[4] = args[4] * 6.0
+    got = _check_rab_tail(tuple(args), dtype)
+    gate_c, gate_s = got[1], got[2]
+    # the inputs did saturate both gates at both ends
+    assert gate_c.min() < 1e-4 and gate_c.max() > 1 - 1e-4
+    assert gate_s.min() < 1e-4 and gate_s.max() > 1 - 1e-4
+    assert all(torch.isfinite(g.float()).all() for g in got)
 
 
 @pytest.mark.parametrize("ties", [False, True])
