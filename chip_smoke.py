@@ -10,11 +10,14 @@ Phases, each of which raises (exit code 1) on failure:
 2. build: compiles the port's CUDA kernels from ``sradsgan_tpu_torch/csrc``
    (one nvcc per source, all at once), counts the tensor-core and
    asynchronous-copy instructions of the attention kernels and the fused
-   RAB tail, and prints the launches the two row-strip kernels take at the
-   main path's shapes (strips an image of each launch, shared bytes);
+   RAB tail, and prints the launches the three row-strip kernels take at
+   the main path's shapes (rows or strips an image of each launch, shared
+   bytes);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the train step's and the serving path's shapes, float32 and bfloat16,
-   every output, with its error and its time beside the plain version's
+   every output (the gate forward also at the serving request's batch of
+   four, one 54^2 and one 216^2 image, two calls bit-equal), with its
+   error and its time beside the plain version's
    (CUDA events), beside its bound (the least time the card could take:
    the bytes the function must move over the memory rate, its operations
    over the peak rate of their type, or its exponentials over the special
@@ -127,6 +130,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 EXPS_PER_CLOCK_PER_SM = 16
 L2_BYTES = 50 * 2 ** 20
+# The gates' shapes: the generator's and the discriminator's CBAM in the
+# train step, and a ragged tile; the serving request's batch of four, the
+# validation sweep's single image and one 216^2 image.
+TRAIN_SHAPES = ((16, 64, 54, 54), (16, 256, 27, 27), (3, 64, 27, 31))
+GATE_SERVING_SHAPES = ((4, 64, 54, 54), (1, 64, 54, 54), (1, 64, 216, 216))
 
 KERNELS = {
     "avg_max_pool": dict(
@@ -270,14 +278,18 @@ def _sass_counts() -> None:
 
 
 def phase_plans() -> dict:
-    """The launches the two row-strip kernels take at the main path's
+    """The launches the three row-strip kernels take at the main path's
     shapes, as their C side chooses them from the card's SM count and a
-    block's shared memory: bands an image of the stencils' launch, strips
-    an image of the statistics launch and of the outputs' launch."""
+    block's shared memory: for the gate forward, rows a strip; for the
+    other two, bands an image of the stencils' launch, strips an image of
+    the statistics launch and of the outputs' launch."""
     device = torch.device("cuda", 0)
     plans = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).rpartition(".")[2]
+        for shape in TRAIN_SHAPES + GATE_SERVING_SHAPES:
+            plans[f"spatial_gate {name} {shape}"] = _build.plan(
+                "sg_spatial_gate", device, shape, dtype)
         for shape in ((16, 64, 54, 54), (16, 256, 27, 27)):
             plans[f"spatial_gate_bwd {name} {shape}"] = _build.plan(
                 "sg_spatial_gate_bwd", device, shape, dtype)
@@ -402,6 +414,18 @@ def _sdpa_library(q, k, v, dout):
     return fwd_ms, bwd_ms, backends
 
 
+def _gate_case(x, w):
+    """The gate forward's case of :func:`_kernel_cases` for input x."""
+    b, _, h, wd = x.shape
+    n = x.numel()
+    return ("spatial_gate", "", x.dtype, tuple(x.shape),
+            lambda: spatial_gate.spatial_gate_cuda(x, w),
+            lambda: spatial_gate.spatial_gate_plain(x, w),
+            2 * n * x.element_size() + 98 * 4, 3 * n + b * h * wd * 2 * 98,
+            {"cold_ms": _cold(
+                lambda x: spatial_gate.spatial_gate_cuda(x, w), x)})
+
+
 def _kernel_cases():
     """(kernel, label, dtype, shape, run kernel, run plain, bytes, flops,
     extra): zero-argument calls at the train step's shapes first, then the
@@ -417,8 +441,7 @@ def _kernel_cases():
     w = _randn((1, 2, 7, 7), torch.float32, 1, scale=0.3)
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.finfo(dtype).bits // 8
-        # the generator's gates, the discriminator's CBAM, a ragged tile
-        for shape in ((16, 64, 54, 54), (16, 256, 27, 27), (3, 64, 27, 31)):
+        for shape in TRAIN_SHAPES:
             x = _randn(shape, dtype, 2)
             g = _randn(shape, dtype, 6)
             b, c, h, wd = shape
@@ -428,12 +451,7 @@ def _kernel_cases():
                    lambda x=x: pooling.avg_max_pool_plain(x),
                    (n + 2 * b * c) * es, 2 * n,
                    {"cold_ms": _cold(pooling.avg_max_pool_cuda, x)})
-            yield ("spatial_gate", "", dtype, shape,
-                   lambda x=x: spatial_gate.spatial_gate_cuda(x, w),
-                   lambda x=x: spatial_gate.spatial_gate_plain(x, w),
-                   2 * n * es + 98 * 4, 3 * n + px * 2 * 98,
-                   {"cold_ms": _cold(
-                       lambda x: spatial_gate.spatial_gate_cuda(x, w), x)})
+            yield _gate_case(x, w)
             # K4 whole (dx and dw), then its parts apart: the kernel with
             # its dw stage left out, and the plain contraction
             contraction, planes = _dw_contraction_case(x, w)
@@ -456,6 +474,10 @@ def _kernel_cases():
                     lambda c=contraction, p=planes: c(*p),
                     "plain_dw_contraction_cold_ms":
                     _cold(contraction, *planes)})
+        # the gate forward also at the serving request's and the
+        # validation sweep's shapes (a batch of four, one image, one 216^2)
+        for shape in GATE_SERVING_SHAPES:
+            yield _gate_case(_randn(shape, dtype, 2), w)
         # the fused RAB tail at the train step's, the serving request's and
         # the validation sweep's shapes and a ragged one
         for shape in ((16, 64, 54, 54), (4, 64, 54, 54), (1, 64, 54, 54),
@@ -561,6 +583,8 @@ def phase_kernels() -> dict:
         exps = extra.pop("exps", 0)
         iters = extra.pop("iters", 20)
         got = kernel()
+        if name == "spatial_gate" and not torch.equal(got, kernel()):
+            fail(f"{name} {dtype} {shape}: two calls differ")
         torch.cuda.synchronize()
         want = plain()
         torch.cuda.synchronize()

@@ -3,7 +3,7 @@
     python -m sradsgan_tpu_torch.cli train --model sradsgan --scale 4 \\
         --data synthetic --no-final-eval [--model-kwargs '{"rab_tail": "fused"}']
     python -m sradsgan_tpu_torch.cli infer --model sradsgan --scale 4 \\
-        --image scene.tif --weights generator.npz --device cuda
+        --image scene.tif --ckpt Result/SRADSGAN_x4/ckpt_best.pt
     python -m sradsgan_tpu_torch.cli list-models
 
 ``train`` takes the flags of ``python -m sradsgan_tpu.cli train`` plus
@@ -12,13 +12,19 @@ builds the ``Trainer``, runs its epoch loop (``--steps`` stops after N
 steps instead) and prints the final metrics and the data feed's share of
 the last epoch as one JSON line.  The by-class evaluation that the JAX
 command runs after training is not ported yet, so ``train`` asks for
-``--no-final-eval`` and says so before any training starts.
+``--no-final-eval`` and says so before any training starts; ``--lpips``,
+which in JAX only adds LPIPS to that table, is accepted and read by
+nothing.
 
 ``infer`` takes the flags of ``python -m sradsgan_tpu.cli infer``, so a JAX
 command line parses unchanged, plus ``--weights`` (JAX generator params as
-``.npz``, see ``tools/from_jax.py``) and ``--device``.  Without
-``--weights`` the generator keeps its seeded random init, as the JAX CLI
-does without ``--ckpt``.  It writes the SR png and the bicubic png.
+``.npz``, see ``tools/from_jax.py``) and ``--device``.  ``--ckpt`` names a
+checkpoint that ``train`` wrote (``ckpt_epoch_N.pt`` or ``ckpt_best.pt``:
+its ``"generator"`` state dict); with neither the generator keeps its
+seeded random init, as the JAX CLI does without ``--ckpt``.  It runs
+``evaluation.validate.mfe_test_single``: the image, centre-cropped by
+``--test-crop``, goes through the generator as it is, and the SR png, the
+bicubic png and, where matplotlib imports, the panel are written.
 """
 
 from __future__ import annotations
@@ -46,7 +52,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model-kwargs", default=None,
                    help='JSON generator-constructor overrides, e.g. '
                         '\'{"base_filters": 16}\'')
-    p.add_argument("--lpips", action="store_true")
+    p.add_argument("--lpips", action="store_true",
+                   help="LPIPS in the final by-class table (not ported); "
+                        "the training itself never reads it")
     p.add_argument("--config", help="JSON TrainConfig overriding flags")
 
 
@@ -65,7 +73,6 @@ def _build_cfg(args):
     cfg.data.batch_size = args.batch_size
     cfg.save_dir = args.save_dir
     cfg.bf16 = not args.no_bf16
-    cfg.val_lpips = args.lpips
     if args.model_kwargs:
         cfg.model_kwargs = json.loads(args.model_kwargs)
     return cfg
@@ -110,43 +117,26 @@ def cmd_train(args) -> int:
 
 
 def cmd_infer(args) -> int:
-    import numpy as np
-    from PIL import Image
+    import torch
 
+    from sradsgan_tpu_torch.evaluation.validate import mfe_test_single
     from sradsgan_tpu_torch.models import create_generator
-    from sradsgan_tpu_torch.serving import Predictor
     from sradsgan_tpu_torch.tools.from_jax import (load_npz,
                                                    sradsgan_state_dict)
 
-    if args.ckpt:
-        raise SystemExit(
-            "--ckpt names an orbax checkpoint, which needs the JAX package; "
-            "save its generator params with sradsgan_tpu_torch.tools.from_jax"
-            ".save_npz and pass --weights")
+    if args.ckpt and args.weights:
+        raise SystemExit("infer: pass --ckpt (a checkpoint of cli train) or "
+                         "--weights (JAX generator params), not both")
     kwargs = json.loads(args.model_kwargs) if args.model_kwargs else {}
     model = create_generator(args.model, args.scale, **kwargs)
-    if args.weights:
+    if args.ckpt:
+        state = torch.load(args.ckpt, map_location="cpu", weights_only=True)
+        model.load_state_dict(state["generator"])
+    elif args.weights:
         model.load_state_dict(sradsgan_state_dict(load_npz(args.weights)))
-
-    img = Image.open(args.image).convert("RGB")
-    if args.test_crop:
-        w, h = img.size
-        left, top = (w - args.test_crop) // 2, (h - args.test_crop) // 2
-        img = img.crop((left, top, left + args.test_crop,
-                        top + args.test_crop))
-    lr01 = np.asarray(img, np.float32) / 255.0
-    bicubic = img.resize((img.width * args.scale, img.height * args.scale),
-                         Image.BICUBIC)
-    sr01 = Predictor(model, args.scale, device=args.device)(lr01)
-
-    os.makedirs(args.out_dir, exist_ok=True)
-    name = os.path.splitext(os.path.basename(args.image))[0]
-    sr_path = os.path.join(args.out_dir, f"SR_{name}_x{args.scale}.png")
-    bc_path = os.path.join(args.out_dir, f"Bicubic_{name}_x{args.scale}.png")
-    Image.fromarray((np.clip(sr01, 0, 1) * 255).astype(np.uint8)).save(
-        sr_path)
-    bicubic.save(bc_path)
-    print(json.dumps({"sr": sr_path, "bicubic": bc_path}))
+    out = mfe_test_single(model, args.image, args.scale, args.out_dir,
+                          crop_size=args.test_crop, device=args.device)
+    print(json.dumps(out))
     return 0
 
 
@@ -176,7 +166,8 @@ def main(argv=None) -> int:
     p = sub.add_parser("infer", help="single-image SR (mfe_test_single)")
     _add_common(p)
     p.add_argument("--image", required=True)
-    p.add_argument("--ckpt")
+    p.add_argument("--ckpt", help="a checkpoint cli train wrote "
+                   "(ckpt_epoch_N.pt, ckpt_best.pt)")
     p.add_argument("--out-dir", default="Result/single")
     p.add_argument("--test-crop", type=int, default=None)
     p.add_argument("--weights",

@@ -40,7 +40,8 @@ _I = ctypes.c_int
 # C signature of each exported launch function (all return cudaError_t).
 _SIGNATURES = {
     "sg_avg_max_pool": [_P, _P, _P, _I, _I, _I, _P],
-    "sg_spatial_gate": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sg_spatial_gate": [_P] * 4 + [_I] * 6 + [_P],
+    "sg_spatial_gate_plan": [_I] * 5 + [_P],
     "sg_spatial_gate_bwd": [_P] * 7 + [_I] * 10 + [_P],
     "sg_spatial_gate_bwd_plan": [_I] * 5 + [_P],
     "sg_position_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -48,8 +49,11 @@ _SIGNATURES = {
     "sg_rab_tail": [_P] * 14 + [_I] * 10 + [_P],
     "sg_rab_tail_plan": [_I] * 6 + [_P],
 }
-PLAN_FIELDS = ("bands", "stats_strips", "stream_strips", "slices",
+# What each planner writes, in order.
+_STRIP_PLAN = ("bands", "stats_strips", "stream_strips", "slices",
                "shared_bytes", "partial_rows")
+PLAN_FIELDS = {"sg_spatial_gate": ("rows", "strips", "shared_bytes"),
+               "sg_spatial_gate_bwd": _STRIP_PLAN, "sg_rab_tail": _STRIP_PLAN}
 
 
 def sources() -> list[Path]:
@@ -168,15 +172,18 @@ def check_input(op: str, t: torch.Tensor, ndim: int) -> None:
 @functools.lru_cache(maxsize=256)
 def plan(name: str, device: torch.device, dims: tuple,
          dtype: torch.dtype) -> dict:
-    """The launches a row-strip kernel (``name``: "sg_spatial_gate_bwd" with
-    dims (B, C, H, W), or "sg_rab_tail" with (B, C, hidden, H, W)) takes at
-    this shape, as the C side chooses them from the card's SM count and a
-    block's shared memory: bands an image of the stencils' launch, strips
-    an image of the statistics launch and of the outputs' launch, channel
-    slices, the most shared bytes a block asks for, and the rows of partial
-    sums the caller provides room for.  Asked once a shape and kept.
-    Raises where the kernel takes no such shape."""
-    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    """The launches a row-strip kernel (``name``: "sg_spatial_gate" or
+    "sg_spatial_gate_bwd" with dims (B, C, H, W), or "sg_rab_tail" with
+    (B, C, hidden, H, W)) takes at this shape, as the C side chooses them
+    from the card's SM count and a block's shared memory (the keys are
+    ``PLAN_FIELDS[name]``).  The gate forward: rows a strip, strips an
+    image, shared bytes a block.  The other two: bands an image of the
+    stencils' launch, strips an image of the statistics launch and of the
+    outputs' launch, channel slices, the most shared bytes a block asks
+    for, and the rows of partial sums the caller provides room for.  Asked
+    once a shape and kept.  Raises where the kernel takes no such shape."""
+    fields = PLAN_FIELDS[name]
+    out = (ctypes.c_int * len(fields))()
     with torch.cuda.device(device):
         err = getattr(library(), name + "_plan")(*dims, DTYPE_CODES[dtype],
                                                  out)
@@ -184,7 +191,7 @@ def plan(name: str, device: torch.device, dims: tuple,
         raise ValueError(f"{name}: no launch fits a {dtype} tensor of dims "
                          f"{dims} (a row of the image has to fit a block's "
                          "shared memory)")
-    return dict(zip(PLAN_FIELDS, out))
+    return dict(zip(fields, out))
 
 
 def plan_args(p: dict) -> tuple:

@@ -2,7 +2,7 @@
 
 Counterpart of ``sradsgan_tpu/ops/spatial_gate.py`` and the Pallas kernels
 in ``sradsgan_tpu/ops/pallas/slam.py``.  On a CUDA tensor the forward
-launches the hand-written kernel in ``csrc/spatial_gate.cu`` and the
+launches the hand-written kernels in ``csrc/spatial_gate.cu`` and the
 backward the one in ``csrc/spatial_gate_bwd.cu`` (dx and dw in one call);
 on a CPU tensor they run :func:`spatial_gate_plain` and
 :func:`spatial_gate_bwd_plain`.  The gate
@@ -19,7 +19,7 @@ runs plain ops.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -85,6 +85,29 @@ def strip_planes(planes: torch.Tensor, e0: int, lo: int, hi: int
     return out
 
 
+def spatial_gate_plain_strips(x: torch.Tensor, w: torch.Tensor,
+                              rows: int) -> torch.Tensor:
+    """:func:`spatial_gate_plain` computed the way the kernel in
+    ``csrc/spatial_gate.cu`` cuts the work: by strips of ``rows`` whole
+    rows, each strip's gate from the statistics on its rows and ``PAD``
+    rows beside them (zeros outside the image).  A second reference for the
+    kernel's halo arithmetic; nothing on the main path calls it."""
+    with torch.autocast(x.device.type, enabled=False):
+        x32, w32 = x.to(plain_dtype(x)), w.to(plain_dtype(x))
+        h = x32.shape[2]
+        out = torch.empty_like(x32)
+        for r0 in range(0, h, rows):
+            r1 = min(h, r0 + rows)
+            e0, e1 = max(0, r0 - PAD), min(h, r1 + PAD)
+            xe = x32[:, :, e0:e1]
+            stats = torch.stack([xe.mean(1), xe.amax(1)], dim=1)
+            gate = torch.sigmoid(F.conv2d(
+                strip_planes(stats, e0, r0 - PAD, r1 + PAD), w32,
+                padding=(0, PAD)))
+            out[:, :, r0:r1] = x32[:, :, r0:r1] * gate
+    return out.to(x.dtype)
+
+
 def spatial_gate_bwd_plain_strips(x: torch.Tensor, w: torch.Tensor,
                                   g: torch.Tensor, rows: int
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -142,14 +165,24 @@ def _check_weight(op: str, x: torch.Tensor, w: torch.Tensor) -> None:
             f"on {x.device}, got {w.dtype} {tuple(w.shape)} on {w.device}")
 
 
-def spatial_gate_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernel: stats, 7x7 stencil, sigmoid and multiply in one launch."""
+def spatial_gate_cuda(x: torch.Tensor, w: torch.Tensor,
+                      rows: Optional[int] = None) -> torch.Tensor:
+    """The kernel: the channel statistics of each strip of rows, then the
+    7x7 stencil, sigmoid and multiply of each strip, two launches with the
+    two stat planes between them in scratch.  ``rows``: the strip height,
+    by default the plan's (``_build.plan``); any height whose strip fits a
+    block's shared memory is taken (the probe and the tests force some)."""
     _build.check_input("spatial_gate", x, 4)
     _check_weight("spatial_gate", x, w)
     b, c, h, wd = x.shape
+    if rows is None:
+        rows = _build.plan("sg_spatial_gate", x.device, (b, c, h, wd),
+                           x.dtype)["rows"]
     out = torch.empty_like(x)
+    planes = torch.empty((2, b, h, wd), device=x.device, dtype=torch.float32)
     _build.launch("sg_spatial_gate", x.device, x.data_ptr(), w.data_ptr(),
-                  out.data_ptr(), b, c, h, wd, _build.DTYPE_CODES[x.dtype])
+                  out.data_ptr(), planes.data_ptr(), b, c, h, wd,
+                  _build.DTYPE_CODES[x.dtype], rows)
     spatial_gate_cuda.launches += 1
     return out
 

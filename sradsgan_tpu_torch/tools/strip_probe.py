@@ -1,8 +1,17 @@
-"""The row-strip kernels (K4 gate backward, K6 fused RAB tail) at the main
-path's shapes: errors against float64, device times in the L2 and cold.
+"""The row-strip kernels (K2 gate forward, K4 gate backward, K6 fused RAB
+tail) at the main path's shapes: errors against float64, device times in
+the L2 and cold.
 
-    python -m sradsgan_tpu_torch.tools.strip_probe [--only k4|k6]
-        [--batches 16 4 1] [--no-time]
+    python -m sradsgan_tpu_torch.tools.strip_probe [--only k2|k4|k6]
+        [--batches 16 4 1] [--no-time] [--k2-rows 0 1 2] [--csrc DIR]
+
+K2 at (B, 64, 54, 54) for each batch size, the discriminator's
+(16, 256, 27, 27), a ragged (3, 64, 27, 31) and one 216^2 image: the output
+against the plain version in float64, a second call for equal bits, then
+its time beside its byte bound (x read once, out written once); at each
+strip height ``--k2-rows`` names.  ``--csrc`` builds the kernels from a
+copy of ``csrc/`` that holds another design of one of them behind the same
+C interface, so that it is timed by the same code.
 
 K4 at (16, 64, 54, 54), (16, 256, 27, 27) and a ragged (3, 64, 27, 31): dx
 and dw against the plain version in float64, a second call for equal bits,
@@ -22,7 +31,9 @@ either kernel, before the whole smoke run.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import itertools
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -31,6 +42,7 @@ from sradsgan_tpu_torch.ops import _build, rab_tail, spatial_gate
 from sradsgan_tpu_torch.tools.attention_probe import graph_ms
 
 L2_BYTES = 50 * 2 ** 20
+PEAK_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM data sheet
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -56,6 +68,43 @@ def cold(call, *inputs):
 def _rel(got, want):
     return float((got.double() - want.double()).abs().max()
                  / want.double().abs().max().clamp_min(1e-30))
+
+
+def k2_shapes(batches):
+    return ([(b, 64, 54, 54) for b in batches]
+            + [(16, 256, 27, 27), (3, 64, 27, 31), (1, 64, 216, 216)])
+
+
+def probe_k2(batches, time_it: bool, rows_list=(0,)) -> None:
+    """``rows_list``: strip heights to force on the kernel (0: the plan's)."""
+    w = _randn((1, 2, 7, 7), torch.float32, 1, scale=0.3)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, rows in itertools.product(k2_shapes(batches), rows_list):
+            if rows > shape[2]:
+                continue
+            rows = rows or _build.plan("sg_spatial_gate", torch.device(
+                "cuda", 0), shape, dtype)["rows"]
+
+            def run(x, rows=rows):
+                return spatial_gate.spatial_gate_cuda(x, w, rows)
+            x = _randn(shape, dtype, 2)
+            got, again = run(x), run(x)
+            torch.cuda.synchronize()
+            err = _rel(got, spatial_gate.spatial_gate_plain(x.double(),
+                                                            w.double()))
+            same = torch.equal(got, again)
+            line = (f"K2 rows {rows} {str(dtype):<14} "
+                    f"{str(shape):<18}: {err:.2e} of "
+                    f"max|float64|, two calls "
+                    f"{'bit-equal' if same else 'DIFFER'}")
+            if err > TOL[dtype] or not same:
+                line += "  <-- FAULT"
+            if time_it:
+                bound = 2 * x.numel() * x.element_size() / PEAK_BYTES_PER_S
+                line += (f"; kernel {graph_ms(lambda: run(x)):.4f} (cold "
+                         f"{graph_ms(cold(run, x)):.4f}), bound "
+                         f"{bound * 1e3:.4f} (bytes)")
+            print(line, flush=True)
 
 
 def probe_k4(time_it: bool) -> None:
@@ -167,9 +216,14 @@ def probe_k6(batches, time_it: bool) -> None:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="strip_probe")
-    p.add_argument("--only", choices=("k4", "k6"))
+    p.add_argument("--only", choices=("k2", "k4", "k6"))
     p.add_argument("--batches", type=int, nargs="+", default=[16, 4, 1])
     p.add_argument("--no-time", action="store_true")
+    p.add_argument("--k2-rows", type=int, nargs="+", default=[0],
+                   help="strip heights to force on K2 (0: its plan's)")
+    p.add_argument("--csrc", help="build the kernels from this directory "
+                   "instead (another design of a kernel, behind the same C "
+                   "interface)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("strip_probe needs a CUDA device")
@@ -179,14 +233,20 @@ def main(argv=None) -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
+    if args.csrc:
+        _build.CSRC_DIR = Path(args.csrc).resolve()
+        _build.BUILD_DIR = _build.CSRC_DIR.with_name(
+            _build.CSRC_DIR.name + "_build")
     _build.library()
     log = _build.BUILD_DIR / _build.source_hash() / "build.log"
     for line in log.read_text().splitlines():
         if "warning" in line or "spill" in line and " 0 bytes spill" not in line:
             print("build:", line.strip())
-    if args.only != "k6":
+    if args.only in (None, "k2"):
+        probe_k2(args.batches, not args.no_time, args.k2_rows)
+    if args.only in (None, "k4"):
         probe_k4(not args.no_time)
-    if args.only != "k4":
+    if args.only in (None, "k6"):
         probe_k6(args.batches, not args.no_time)
     return 0
 

@@ -10,11 +10,13 @@ twice over for equal bits; the fused RAB tail at
 ragged tiles, images under its halo, 16 and 256 channels, with its backward
 and inside a RAB; the gate's double backward
 on the card; and the dispatch that sends CUDA tensors to the kernels.  The
-two row-strip kernels (gate backward, fused RAB tail) also at heights
-under and off their strips and bands, odd widths, 1 to 256 channels,
-batches from 1 to 37, a 216x216 image, planes and views off the 16-byte
+three row-strip kernels (gate forward and backward, fused RAB tail) also
+at heights under and off their strips and bands, odd widths, 1 to 256
+channels, batches from 1 to 37, a 216x216 image, planes and views off the 16-byte
 grid, tied maxima, saturated gates, twice over for equal bits, and against
-the strip-wise plain helpers.  Marked ``gpu``; they skip
+the strip-wise plain helpers; the gate forward also at strips of 1 to 5
+rows, beyond one wave of blocks, 20 times over for equal bits, inside a
+captured CUDA graph and on two streams at once.  Marked ``gpu``; they skip
 where no CUDA device is present.  This file imports neither JAX nor the
 JAX package, so on a machine without them run it as
 
@@ -134,6 +136,143 @@ def _off_grid(t):
     view.copy_(t)
     assert view.data_ptr() % 16 and view.is_contiguous()
     return view
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+def test_gate_kernel_over_strip_shapes(cuda, dtype, shape):
+    """Against the plain version, and against the strip-wise plain helper
+    at the kernel's own strips; a second launch gives the same bits."""
+    from sradsgan_tpu_torch.ops import _build
+    x = _randn(shape, dtype, cuda)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    got = spatial_gate.spatial_gate_cuda(x, w)
+    again = spatial_gate.spatial_gate_cuda(x, w)
+    rows = _build.plan("sg_spatial_gate", x.device, shape, dtype)["rows"]
+    torch.cuda.synchronize()
+    _close(got, spatial_gate.spatial_gate_plain(x, w), dtype)
+    _close(got, spatial_gate.spatial_gate_plain_strips(x, w, rows), dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 5])
+@pytest.mark.parametrize("shape", [(2, 8, 11, 13), (3, 64, 27, 31),
+                                   (1, 64, 216, 216)])
+def test_gate_kernel_matches_the_strip_helper(cuda, shape, rows):
+    """Strips of 1 to 5 rows (a halo of 3 rows reaching over 3 to 1 strips
+    beside each), tied channel maxima, against the same cutting in plain
+    PyTorch."""
+    x = _randn(shape, torch.float32, cuda).mul(1.5).round()
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    got = spatial_gate.spatial_gate_cuda(x, w, min(rows, shape[2]))
+    torch.cuda.synchronize()
+    _close(got, spatial_gate.spatial_gate_plain_strips(x, w, rows),
+           torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 64, 54, 54), (3, 64, 27, 31),
+                                   (2, 256, 27, 27), (1, 16, 216, 216)])
+def test_gate_kernel_takes_views_off_the_16_byte_grid(cuda, dtype, shape):
+    x = _off_grid(_randn(shape, dtype, cuda))
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    got = spatial_gate.spatial_gate_cuda(x, w)
+    torch.cuda.synchronize()
+    _close(got, spatial_gate.spatial_gate_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gate_kernel_with_saturated_gates(cuda, dtype):
+    """Pre-activations of +-30 and beyond: gates that round to 0 and 1."""
+    x = _randn((4, 64, 54, 54), dtype, cuda)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=1.8)
+    planes = torch.stack([x.float().mean(1), x.float().amax(1)], 1)
+    assert torch.nn.functional.conv2d(planes, w, padding=3).abs().max() > 30
+    got = spatial_gate.spatial_gate_cuda(x, w)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _close(got, spatial_gate.spatial_gate_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 16, 1, 9), (3, 8, 2, 40),
+                                   (1, 64, 6, 6), (4, 3, 5, 1)])
+def test_gate_kernel_under_the_stencil(cuda, dtype, shape):
+    """Images of 1 to 6 rows (or one column): the halo is all border."""
+    x = _randn(shape, dtype, cuda)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    got = spatial_gate.spatial_gate_cuda(x, w)
+    torch.cuda.synchronize()
+    _close(got, spatial_gate.spatial_gate_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("rows", [None, 1])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gate_kernel_beyond_one_wave(cuda, dtype, rows):
+    """More blocks than the card holds at once (37 images of 54 one-row
+    strips): the outputs' launch, started early, waits for the statistics
+    launch whose last blocks start only as others end."""
+    x = _randn((37, 64, 54, 54), dtype, cuda)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    got = spatial_gate.spatial_gate_cuda(x, w, rows)
+    torch.cuda.synchronize()
+    _close(got, spatial_gate.spatial_gate_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(16, 64, 54, 54), (1, 64, 216, 216)])
+def test_gate_kernel_is_bit_equal_over_20_calls(cuda, dtype, shape):
+    """The order in which blocks run changes no bit."""
+    x = _randn(shape, dtype, cuda)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    outs = [spatial_gate.spatial_gate_cuda(x, w) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    _close(outs[0], spatial_gate.spatial_gate_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gate_kernel_in_a_cuda_graph(cuda, dtype):
+    """Three calls captured in a graph (each two launches, the second a
+    programmatic dependent launch), replayed twice, then an eager call."""
+    x = _randn((4, 64, 54, 54), dtype, cuda)
+    x2 = _randn((2, 256, 27, 27), dtype, cuda, seed=3)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    spatial_gate.spatial_gate_cuda(x, w)  # build and plan outside the capture
+    spatial_gate.spatial_gate_cuda(x2, w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        a = spatial_gate.spatial_gate_cuda(x, w)
+        b = spatial_gate.spatial_gate_cuda(x2, w)
+        c = spatial_gate.spatial_gate_cuda(x, w)
+    want, want2 = (spatial_gate.spatial_gate_plain(x, w),
+                   spatial_gate.spatial_gate_plain(x2, w))
+    for _ in range(2):
+        for t in (a, b, c):
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(a, want, dtype)
+        _close(b, want2, dtype)
+        assert torch.equal(a, c)
+    eager = spatial_gate.spatial_gate_cuda(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(eager, a)
+
+
+def test_gate_kernel_on_a_second_stream(cuda):
+    """Calls on two streams at once give the bits of calls on one."""
+    x = _randn((16, 64, 54, 54), torch.float32, cuda)
+    w = _randn((1, 2, 7, 7), torch.float32, cuda, seed=1, std=0.3)
+    want = spatial_gate.spatial_gate_cuda(x, w)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        on_side = [spatial_gate.spatial_gate_cuda(x, w) for _ in range(5)]
+    on_main = [spatial_gate.spatial_gate_cuda(x, w) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(want, o) for o in on_side + on_main)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

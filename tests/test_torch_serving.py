@@ -88,6 +88,7 @@ def test_port_imports_no_jax_flax_or_pil():
             "import sradsgan_tpu_torch.data.loader\n"
             "import sradsgan_tpu_torch.metrics.fidelity\n"
             "import sradsgan_tpu_torch.utils.logging\n"
+            "import sradsgan_tpu_torch.evaluation.validate\n"
             "from sradsgan_tpu_torch.data.datasets import SyntheticDataset\n"
             "SyntheticDataset(2, 4, 16).load(0)\n"
             "print(json.dumps({m: m in sys.modules\n"

@@ -1,15 +1,18 @@
-"""The row-strip formulations of the gate backward and the fused RAB tail
-against the JAX package, on the CPU.
+"""The row-strip formulations of the gate forward and backward and the fused
+RAB tail against the JAX package, on the CPU.
 
-The kernels in ``csrc/spatial_gate_bwd.cu`` and ``csrc/rab_tail.cu`` cut an
+The kernels in ``csrc/spatial_gate.cu``, ``csrc/spatial_gate_bwd.cu`` and
+``csrc/rab_tail.cu`` cut an
 image into strips of whole rows, each with halos (statistics 6 or 3 rows
 beyond the strip, zeros outside the image), combine the image-wide pools and
 the weight gradient from per-strip partials in strip order, and exchange
 the halo rows between the blocks of a cluster.  A CUDA kernel cannot run
 here, so the same cutting is written in plain PyTorch beside each kernel
-(``spatial_gate_bwd_plain_strips``, ``rab_tail_plain_strips``) and held
-against the JAX package: the Pallas backward kernel ``slam._bwd_pallas`` in
-interpret mode with ``slam._dw_contraction`` (1e-5 of max |ref|), and the
+(``spatial_gate_plain_strips``, ``spatial_gate_bwd_plain_strips``,
+``rab_tail_plain_strips``) and held against the JAX package: the Pallas
+forward ``slam._fwd_pallas`` in interpret mode (1e-5 of max |ref|), the
+Pallas backward kernel ``slam._bwd_pallas`` in interpret mode with
+``slam._dw_contraction`` (1e-5), and the
 fused tail's jnp reference ``rab_tail._forward_jnp`` (1e-6; ``max_t``
 exact, ``max_u`` bit-equal to the maximum of ``t * gate_c``).  Strip
 heights of one row, of fewer rows than the stencil reaches, of rows that do
@@ -49,6 +52,34 @@ def _nchw(a):
 def _oihw(w_hwio):
     return torch.from_numpy(np.ascontiguousarray(
         w_hwio.transpose(3, 2, 0, 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def _gate_fwd_case(plane, ties):
+    """NCHW input, OIHW taps and the Pallas forward's output for them."""
+    h, w = plane
+    rng = np.random.default_rng(h + 100 * ties + 7)
+    x = rng.normal(0, 1, (BATCH, h, w, CHANNELS))
+    if ties:  # a few integer values: most channel maxima are tied
+        x = np.round(1.5 * x)
+    x = x.astype(np.float32)
+    kernel = rng.normal(0, 0.3, (7, 7, 2, 1)).astype(np.float32)  # HWIO
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SRADSGAN_TPU_PALLAS_INTERPRET", "1")
+        out = slam._fwd_pallas(jnp.asarray(x), jnp.asarray(kernel))
+    return _nchw(x), _oihw(kernel), _nchw(out)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("plane", PLANES + [(5, 9)])  # and one under 7 rows
+def test_gate_forward_by_strips_matches_the_pallas_kernel(plane, rows, ties):
+    """The cutting of ``csrc/spatial_gate.cu``: each strip's gate from the
+    statistics on its rows and 3 rows beside them."""
+    x, w, want = _gate_fwd_case(plane, ties)
+    got = sg.spatial_gate_plain_strips(x, w, rows or plane[0])
+    err = float((got - want).abs().max())
+    assert err <= GATE_TOL * float(want.abs().max()), err
 
 
 @functools.lru_cache(maxsize=None)
