@@ -65,7 +65,19 @@ Phases, each of which raises (exit code 1) on failure:
    of 64 images after each epoch), in this process: it must write
    ``ckpt_best.pt``, ``loss_log.txt`` and ``val_log.txt``, end with finite
    metrics, launch every kernel at the counts the loop's structure gives,
-   and it prints the data feed's share of the last epoch.
+   and it prints the data feed's share of the last epoch;
+8. the evaluation protocol: ``evaluation.validate.mfe_new_validate_by_class``
+   over the synthetic test set (64 images, 216^2 HR, bilinear 54^2 LR,
+   batches of 8) for the full-width x4 generator (seeded fan-in weights)
+   with AlexNet LPIPS (seeded trunk), unfused and fused: exact launch
+   counts per sweep (K1, K2 48 and K3 once a forward; fused K6 48 and K3
+   once), finite table rows, the sweep's seconds, images/s and the split
+   between device forward, LPIPS and host scoring; the first batch held
+   against the CPU plain path (SR within SLICE_TOL of max|ref|, LPIPS
+   within 1e-4 relative, each row within ROW_BARS); then ``cli
+   validate-by-class`` (its table and its CSV's LPIPS columns) and ``cli
+   train`` with its final table, both with ``--lpips`` at 64^2, with their
+   launch counts.
 
 It prints the kernels' record as one JSON line before the last, and ends
 with ``{"ok": true, "device": {...}}``.
@@ -89,9 +101,13 @@ import torch
 import torch.nn.functional as F
 
 from sradsgan_tpu_torch import cli
+from sradsgan_tpu_torch.config import DataConfig
 from sradsgan_tpu_torch.data.datasets import build_test_dataset
 from sradsgan_tpu_torch.data.loader import DataLoader
 from sradsgan_tpu_torch.evaluation.tiled import forward_numpy
+from sradsgan_tpu_torch.evaluation.validate import (
+    Evaluator, _score_pair, format_by_class_table, mfe_new_validate_by_class)
+from sradsgan_tpu_torch.losses.lpips import lpips_fn, lpips_is_calibrated
 from sradsgan_tpu_torch.models import create_generator
 from sradsgan_tpu_torch.nn.attention import LocalAttention
 from sradsgan_tpu_torch.ops import (_build, pooling, rab_tail, sgam_flash,
@@ -1223,6 +1239,205 @@ def phase_cli_train(smi: str) -> dict:
             "feed": feed}
 
 
+EVAL_IMAGES = 64  # the synthetic test set at the default sizes
+EVAL_BATCH = 8
+# the table's rows, card against the CPU plain path, per image
+ROW_BARS = {"psnr": ("abs", 1e-3), "ssim": ("abs", 1e-5),
+            "ergas": ("rel", 1e-4), "lpips": ("rel", 1e-4),
+            "mse": ("rel", 2.3e-4)}
+
+
+class _FirstImages:
+    """The first ``n`` images of a dataset, as a dataset."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self):
+        return self.n
+
+    def load(self, index: int):
+        return self.dataset.load(index)
+
+
+def _row_faults(got: dict, want: dict, what: str) -> list:
+    faults = []
+    for key, (kind, bar) in ROW_BARS.items():
+        g, w = got[key], want[key]
+        err = abs(g - w) if kind == "abs" else abs(g - w) / abs(w)
+        if not err <= bar:
+            faults.append(f"{what} {key}: card {g!r}, CPU {w!r} ({kind} "
+                          f"{err:.3e} > {bar:.0e})")
+    return faults
+
+
+def _cli_run(argv: list, smi: str) -> tuple:
+    """``cli.main(argv)`` in this process: its stdout lines and launches."""
+    print("python -m sradsgan_tpu_torch.cli " + " ".join(argv))
+    tee = _Tee(sys.stdout)
+    reset_launches()
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if rc != 0:
+        fail(f"cli {argv[0]} exited with {rc}")
+    return tee.lines.getvalue().strip().splitlines(), launches
+
+
+def _check_table_lines(lines: list, what: str) -> None:
+    """The by-class text table: the five columns' header, then "all" and
+    "Total" with finite numbers."""
+    header = ["class", "PSNR", "SSIM", "ERGAS", "bcPSNR", "bcSSIM"]
+    at = [i for i, line in enumerate(lines) if line.split() == header]
+    rows = [line.split() for line in lines[at[-1] + 1:at[-1] + 3]] if at \
+        else []
+    if (not at or [r[0] for r in rows] != ["all", "Total"]
+            or not np.isfinite([float(v) for r in rows for v in r[1:]]).all()):
+        fail(f"{what} did not print the by-class table: {lines[-4:]}")
+
+
+def phase_eval_protocol(smi: str) -> dict:
+    """The evaluation protocol on the card: ``mfe_new_validate_by_class``
+    over the synthetic test set (64 images, 216^2 HR, bilinear 54^2 LR, in
+    batches of 8) for the full-width x4 generator (seeded fan-in weights,
+    gains 0.5) with AlexNet LPIPS (seeded trunk: lpips*), unfused and
+    fused: exact launch counts per sweep, the table's rows finite, and the
+    sweep's seconds split into the device forward, LPIPS and host scoring.
+    The first batch also goes through the CPU plain path: the card's SR
+    within SLICE_TOL of max|ref|, its LPIPS within 1e-4 relative and the
+    rows within ROW_BARS (TF32 off).  Then ``cli validate-by-class`` and
+    ``cli train`` with its final table, both with ``--lpips``, at 64^2."""
+    model = create_generator("sradsgan", 4, seed=0)
+    fan_in_init(model, seed=5)
+    with torch.no_grad():
+        model.GAB_UP.ca.gamma.fill_(0.5)
+        model.GAB_UP.sa.gamma.fill_(0.5)
+    cpu_model = copy.deepcopy(model).eval()
+    fused = create_generator("sradsgan", 4, rab_tail="fused")
+    fused.load_state_dict(model.state_dict())
+    data = DataConfig(synthetic=True)
+    if len(build_test_dataset(data, 4)) != EVAL_IMAGES:
+        fail("the synthetic test set is not 64 images")
+    lp = lpips_fn("alex")
+    print(f"LPIPS trunk calibrated: {lpips_is_calibrated('alex')} (lpips* "
+          "without SRADSGAN_TPU_ALEXNET_NPZ)")
+
+    # the first batch on the CPU plain path: SR, LPIPS and the rows
+    first = _FirstImages(build_test_dataset(data, 4), EVAL_BATCH)
+    batch = next(iter(DataLoader(first, EVAL_BATCH, shuffle=False,
+                                 drop_last=False, num_workers=4)))
+    t0 = time.perf_counter()
+    cpu_sr = Evaluator(cpu_model, 4, device="cpu").super_resolve(batch["lr"])
+    cpu_lpips = lp.batched(*(torch.from_numpy(
+        np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
+        for a in (cpu_sr, batch["hr"]))).numpy()
+    cpu_rows = [dict(_score_pair(cpu_sr[i], batch["hr"][i], 4),
+                     lpips=float(cpu_lpips[i])) for i in range(EVAL_BATCH)]
+    cpu_s = time.perf_counter() - t0
+
+    out, paths = {"cpu_first_batch_s": cpu_s}, {}
+    for rab, gen in (("unfused", model), ("fused", fused)):
+        ev = Evaluator(gen, 4, lp, EVAL_BATCH, device="cuda")
+        sr = ev.super_resolve(batch["lr"])
+        sr_err = float(np.abs(sr - cpu_sr).max())
+        sr_bound = SLICE_TOL * float(np.abs(cpu_sr).max())
+        rows = ev.run(first)["all"]["sr"]
+        lp_err = max(abs(r["lpips"] - c["lpips"]) / abs(c["lpips"])
+                     for r, c in zip(rows, cpu_rows))
+        faults = [f for i, (r, c) in enumerate(zip(rows, cpu_rows))
+                  for f in _row_faults(r, c, f"{rab} image {i}")]
+        print(f"eval first batch {rab} (8 x 54^2 -> 216^2, f32): SR max|d| "
+              f"{sr_err:.3e} <= {sr_bound:.3e}; LPIPS rel {lp_err:.3e} <= "
+              f"1e-4; rows within {ROW_BARS} ({len(faults)} faults); CPU "
+              f"plain path took {cpu_s:.1f} s")
+        if not sr_err <= sr_bound:
+            faults.append(f"{rab} SR off the CPU plain path by {sr_err:.3e}")
+        if not lp_err <= 1e-4:
+            faults.append(f"{rab} LPIPS off the CPU's by {lp_err:.3e}")
+        if faults:
+            fail("; ".join(faults))
+
+        stats = {}
+        reset_launches()
+        table = mfe_new_validate_by_class(
+            gen, data, 4, lpips_fn=lp, batch_size=EVAL_BATCH, device="cuda",
+            stats=stats)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = forward_launches(gen, forwards=EVAL_IMAGES // EVAL_BATCH)
+        print(f"eval sweep {rab} launches: {launches}")
+        if launches != want:
+            fail(f"eval sweep ({rab}) launches {launches} differ from the "
+                 f"path's {want}")
+        values = [v for row in table.values() for side in row.values()
+                  for v in side.values()]
+        if (list(table) != ["all", "Total"] or stats["images"] != EVAL_IMAGES
+                or set(table["Total"]["sr"]) != set(ROW_BARS)
+                or not np.isfinite(values).all()):
+            fail(f"eval sweep ({rab}) table {dict(table)}, stats {stats}")
+        host = stats["score"] + stats["feed"]
+        print(format_by_class_table(table))
+        print(f"eval sweep {rab}: {EVAL_IMAGES} images in {stats['wall']:.2f} "
+              f"s, {EVAL_IMAGES / stats['wall']:.2f} images/s, "
+              f"{stats['wall'] / EVAL_IMAGES:.4f} s/image; device forward "
+              f"{stats['forward']:.3f} s, LPIPS {stats['lpips']:.3f} s (CUDA "
+              f"events, stream spans), host scoring {stats['score']:.3f} s, "
+              f"host waiting on the feed {stats['feed']:.3f} s; host share "
+              f"{host / stats['wall']:.4f}; Total {table['Total']['sr']} "
+              f"[{smi}]")
+        out[rab] = dict(stats, sr_max_abs_err=sr_err, lpips_max_rel_err=lp_err,
+                        images_per_s=EVAL_IMAGES / stats["wall"],
+                        host_share=host / stats["wall"])
+        paths[f"eval_sweep_{rab}"] = launches
+        del ev
+
+    with tempfile.TemporaryDirectory() as save_dir:
+        common = ["--scale", "4", "--data", "synthetic", "--crop-size", "64",
+                  "--lpips"]
+        lines, launches = _cli_run(
+            ["validate-by-class"] + common
+            + ["--model-kwargs", '{"rab_tail": "fused"}', "--save-dir",
+               os.path.join(save_dir, "validate")], smi)
+        _check_table_lines(lines, "cli validate-by-class")
+        csv = os.path.join(save_dir, "validate", "SRADSGAN_x4",
+                           "by_class_x4.csv")
+        with open(csv) as f:
+            columns = f.readline().strip().split(",")
+        if "sr_lpips" not in columns or "bc_lpips" not in columns:
+            fail(f"by_class_x4.csv columns {columns}")
+        forwards = EVAL_IMAGES // EVAL_BATCH
+        gates = 12 * (3 + 1)
+        want = {"avg_max_pool": 0, "spatial_gate": 0,
+                "position_attention": forwards, "spatial_gate_bwd": 0,
+                "position_attention_bwd": 0, "rab_tail": gates * forwards}
+        if launches != want:
+            fail(f"cli validate-by-class launches {launches} differ from "
+                 f"{want}")
+        paths["cli_validate_by_class_fused"] = launches
+
+        steps = 2
+        lines, launches = _cli_run(
+            ["train", "--steps", str(steps), "--batch-size", "4"] + common
+            + ["--save-dir", os.path.join(save_dir, "train")], smi)
+        _check_table_lines(lines, "cli train")
+        # the steps (as step_launches counts them), then the final table's
+        # forwards; --steps ends training before any validation sweep
+        want = {"avg_max_pool": steps * (gates + 4) + forwards * gates,
+                "spatial_gate": steps * (gates + 4) + forwards * gates,
+                "position_attention": steps + forwards,
+                "spatial_gate_bwd": steps * (gates + 5),
+                "position_attention_bwd": steps, "rab_tail": 0}
+        if launches != want:
+            fail(f"cli train with its final table launches {launches} "
+                 f"differ from {want}")
+        paths["cli_train_final_table"] = launches
+    print(f"cli validate-by-class and cli train (2 steps, the final table) "
+          f"at 64^2 -> their tables, LPIPS columns in the CSV [{smi}]")
+    out["launches_by_path"] = paths
+    return out
+
+
 def main() -> int:
     # Full float32 in the plain versions too: cuDNN would run the float32
     # convs in TF32 (about three decimal digits) by default.
@@ -1242,11 +1457,13 @@ def main() -> int:
     validation = phase_validation_batch()
     timing = phase_train_timing(smi)
     cli_train = phase_cli_train(smi)
+    eval_protocol = phase_eval_protocol(smi)
     paths = {"serving": serving["launches"],
              "serving_fused": serving["fused_launches"],
              **{f"train_{k[len('launches_'):]}": v
                 for k, v in timing.items() if k.startswith("launches_")},
-             "cli_train_fused": cli_train["launches"]}
+             "cli_train_fused": cli_train["launches"],
+             **eval_protocol.pop("launches_by_path")}
     never = [name for name in KERNELS
              if not any(path[name] for path in paths.values())]
     idle = [name for name in KERNELS if not cli_train["launches"][name]]
@@ -1267,6 +1484,7 @@ def main() -> int:
                       "validation_batch": validation,
                       "cli_train": {k: v for k, v in cli_train.items()
                                     if k != "launches"},
+                      "eval_protocol": eval_protocol,
                       "strips": plans, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,30 +1,45 @@
 """Command-line interface of the port.
 
     python -m sradsgan_tpu_torch.cli train --model sradsgan --scale 4 \\
-        --data synthetic --no-final-eval [--model-kwargs '{"rab_tail": "fused"}']
+        --data synthetic [--model-kwargs '{"rab_tail": "fused"}'] [--lpips]
+    python -m sradsgan_tpu_torch.cli chain-train --scales 2 3 4 8 9 ...
+    python -m sradsgan_tpu_torch.cli validate --scale 4 \\
+        --ckpt Result/SRADSGAN_x4/ckpt_best.pt [--lpips]
+    python -m sradsgan_tpu_torch.cli validate-by-class --scale 4 \\
+        --ckpt Result/SRADSGAN_x4/ckpt_best.pt [--lpips] [--save-img]
     python -m sradsgan_tpu_torch.cli infer --model sradsgan --scale 4 \\
         --image scene.tif --ckpt Result/SRADSGAN_x4/ckpt_best.pt
     python -m sradsgan_tpu_torch.cli list-models
 
-``train`` takes the flags of ``python -m sradsgan_tpu.cli train`` plus
-``--device``: it archives a stale run directory (unless ``--resume``),
-builds the ``Trainer``, runs its epoch loop (``--steps`` stops after N
-steps instead) and prints the final metrics and the data feed's share of
-the last epoch as one JSON line.  The by-class evaluation that the JAX
-command runs after training is not ported yet, so ``train`` asks for
-``--no-final-eval`` and says so before any training starts; ``--lpips``,
-which in JAX only adds LPIPS to that table, is accepted and read by
-nothing.
+Each command takes the flags of its ``python -m sradsgan_tpu.cli``
+counterpart, so a JAX command line parses unchanged, plus ``--device``
+(default ``cuda``; ``cpu`` runs the kernels' plain versions).
 
-``infer`` takes the flags of ``python -m sradsgan_tpu.cli infer``, so a JAX
-command line parses unchanged, plus ``--weights`` (JAX generator params as
-``.npz``, see ``tools/from_jax.py``) and ``--device``.  ``--ckpt`` names a
-checkpoint that ``train`` wrote (``ckpt_epoch_N.pt`` or ``ckpt_best.pt``:
-its ``"generator"`` state dict); with neither the generator keeps its
-seeded random init, as the JAX CLI does without ``--ckpt``.  It runs
+``train`` archives a stale run directory (unless ``--resume``), builds the
+``Trainer``, runs its epoch loop (``--steps`` stops after N steps instead),
+prints the final metrics and the data feed's share of the last epoch as one
+JSON line, and then, unless ``--no-final-eval``, the by-class table of the
+trained generator as every reference ``main_*.py`` does (LPIPS columns with
+``--lpips``, SR pngs and panels under ``<model_dir>/eval`` with
+``--save-img``), the generator in float32 as the reference evaluates it
+(the JAX command evaluates in the trainer's precision, bf16 by default).
+``chain-train`` trains each of ``--scales`` in turn, each scale's generator
+and discriminator warm-started from the previous scale's ``ckpt_best.pt``
+(else its last epoch's checkpoint).
+
+``validate``, ``validate-by-class`` and ``infer`` load the generator from
+``--ckpt`` (a checkpoint ``train`` wrote, ``ckpt_epoch_N.pt`` or
+``ckpt_best.pt``: its ``"generator"`` state dict) or ``--weights`` (JAX
+generator params as ``.npz``, see ``tools/from_jax.py``), not both; with
+neither it keeps its seeded random init, as the JAX CLI does without
+``--ckpt``.  ``validate`` prints the whole test set's means as JSON,
+``validate-by-class`` the per-class table, whose CSV it writes to
+``<model_dir>/by_class_x<scale>.csv``.  ``infer`` runs
 ``evaluation.validate.mfe_test_single``: the image, centre-cropped by
 ``--test-crop``, goes through the generator as it is, and the SR png, the
 bicubic png and, where matplotlib imports, the panel are written.
+Without the LPIPS trunk's weights (``SRADSGAN_TPU_ALEXNET_NPZ``)
+``--lpips`` says that it reports the uncalibrated ``lpips*``.
 """
 
 from __future__ import annotations
@@ -38,7 +53,7 @@ import sys
 def _add_common(p: argparse.ArgumentParser) -> None:
     """The JAX CLI's common flags.  ``infer`` reads --model, --scale and
     --model-kwargs and accepts the rest only so that a JAX command line
-    parses; ``train`` reads them all."""
+    parses; the other commands read them all."""
     p.add_argument("--model", default="sradsgan")
     p.add_argument("--scale", type=int, default=4)
     p.add_argument("--data-dir", default="data")
@@ -53,9 +68,21 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help='JSON generator-constructor overrides, e.g. '
                         '\'{"base_filters": 16}\'')
     p.add_argument("--lpips", action="store_true",
-                   help="LPIPS in the final by-class table (not ported); "
-                        "the training itself never reads it")
+                   help="LPIPS columns in the evaluation (see losses/lpips.py "
+                        "about the trunk's weights); train's own sweep "
+                        "never reads it")
     p.add_argument("--config", help="JSON TrainConfig overriding flags")
+
+
+def _lpips(args):
+    if not args.lpips:
+        return None
+    from sradsgan_tpu_torch.losses.lpips import lpips_fn, lpips_is_calibrated
+
+    if not lpips_is_calibrated():
+        print("note: LPIPS backbone weights not provided "
+              "(SRADSGAN_TPU_ALEXNET_NPZ); reporting uncalibrated lpips*")
+    return lpips_fn()
 
 
 def _build_cfg(args):
@@ -78,6 +105,30 @@ def _build_cfg(args):
     return cfg
 
 
+def _load_eval_model(args):
+    """The generator of ``--model``/``--scale``/``--model-kwargs`` on the
+    CPU, holding ``--ckpt`` (the port's ``.pt``) or ``--weights`` (JAX
+    params, ``.npz``), else its seeded init."""
+    import torch
+
+    from sradsgan_tpu_torch.models import create_generator
+    from sradsgan_tpu_torch.tools.from_jax import (load_npz,
+                                                   sradsgan_state_dict)
+
+    if args.ckpt and args.weights:
+        raise SystemExit(f"{args.cmd}: pass --ckpt (a checkpoint of cli "
+                         "train) or --weights (JAX generator params), not "
+                         "both")
+    kwargs = json.loads(args.model_kwargs) if args.model_kwargs else {}
+    model = create_generator(args.model, args.scale, **kwargs)
+    if args.ckpt:
+        state = torch.load(args.ckpt, map_location="cpu", weights_only=True)
+        model.load_state_dict(state["generator"])
+    elif args.weights:
+        model.load_state_dict(sradsgan_state_dict(load_npz(args.weights)))
+    return model
+
+
 def _archive_stale_dir(path: str) -> None:
     """Rename an existing run dir to ``{path}_archived_{timestamp}``, so
     that a fresh run never mixes its outputs with a stale one's."""
@@ -91,11 +142,6 @@ def _archive_stale_dir(path: str) -> None:
 
 
 def cmd_train(args) -> int:
-    if not args.no_final_eval:
-        raise SystemExit(
-            "train: the final by-class evaluation (evaluation/validate.py) "
-            "is not ported to PyTorch yet; pass --no-final-eval (nothing "
-            "was trained)")
     from sradsgan_tpu_torch.train.trainer import Trainer
 
     cfg = _build_cfg(args)
@@ -113,29 +159,75 @@ def cmd_train(args) -> int:
     if feed.get("epoch_s"):
         feed["feed_share"] = feed["feed_wait_s"] / feed["epoch_s"]
     print(json.dumps({"final": metrics, "feed": feed}))
+    if not args.no_final_eval:
+        from sradsgan_tpu_torch.evaluation.validate import (
+            format_by_class_table, mfe_new_validate_by_class)
+        table = mfe_new_validate_by_class(
+            trainer.generator, cfg.data, cfg.scale, lpips_fn=_lpips(args),
+            save_img=args.save_img,
+            save_dir=os.path.join(cfg.model_dir, "eval"),
+            device=args.device)
+        print(format_by_class_table(table))
+    return 0
+
+
+def cmd_chain_train(args) -> int:
+    from sradsgan_tpu_torch.train.trainer import Trainer
+
+    prev_ckpt = None
+    results = {}
+    for scale in args.scales:
+        args.scale = scale
+        cfg = _build_cfg(args)
+        if args.epochs is not None:
+            cfg.num_epochs = args.epochs
+        cfg.init_from = prev_ckpt
+        trainer = Trainer(cfg, device=args.device)
+        results[f"x{scale}"] = trainer.train(num_steps=args.steps)
+        prev_ckpt = trainer.save_checkpoint(cfg.num_epochs - 1)
+        best = os.path.join(cfg.model_dir, "ckpt_best.pt")
+        if os.path.exists(best):
+            prev_ckpt = best
+        print(f"scale x{scale} done; next init_from={prev_ckpt}")
+    print(json.dumps({k: {m: float(v) for m, v in r.items()}
+                      for k, r in results.items()}))
+    return 0
+
+
+def cmd_validate(args) -> int:
+    from sradsgan_tpu_torch.evaluation.validate import mfe_new_validate
+
+    cfg = _build_cfg(args)
+    out = mfe_new_validate(_load_eval_model(args), cfg.data, args.scale,
+                           lpips_fn=_lpips(args), save_img=args.save_img,
+                           save_dir=os.path.join(cfg.model_dir, "eval"),
+                           device=args.device)
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def cmd_validate_by_class(args) -> int:
+    from sradsgan_tpu_torch.evaluation.validate import (
+        format_by_class_table, mfe_new_validate_by_class, save_by_class_csv)
+
+    cfg = _build_cfg(args)
+    table = mfe_new_validate_by_class(
+        _load_eval_model(args), cfg.data, args.scale, lpips_fn=_lpips(args),
+        save_img=args.save_img,
+        save_dir=os.path.join(cfg.model_dir, "eval"), device=args.device)
+    print(format_by_class_table(table))
+    csv_path = os.path.join(cfg.model_dir, f"by_class_x{args.scale}.csv")
+    save_by_class_csv(table, csv_path)
+    print(f"table saved: {csv_path}")
     return 0
 
 
 def cmd_infer(args) -> int:
-    import torch
-
     from sradsgan_tpu_torch.evaluation.validate import mfe_test_single
-    from sradsgan_tpu_torch.models import create_generator
-    from sradsgan_tpu_torch.tools.from_jax import (load_npz,
-                                                   sradsgan_state_dict)
 
-    if args.ckpt and args.weights:
-        raise SystemExit("infer: pass --ckpt (a checkpoint of cli train) or "
-                         "--weights (JAX generator params), not both")
-    kwargs = json.loads(args.model_kwargs) if args.model_kwargs else {}
-    model = create_generator(args.model, args.scale, **kwargs)
-    if args.ckpt:
-        state = torch.load(args.ckpt, map_location="cpu", weights_only=True)
-        model.load_state_dict(state["generator"])
-    elif args.weights:
-        model.load_state_dict(sradsgan_state_dict(load_npz(args.weights)))
-    out = mfe_test_single(model, args.image, args.scale, args.out_dir,
-                          crop_size=args.test_crop, device=args.device)
+    out = mfe_test_single(_load_eval_model(args), args.image, args.scale,
+                          args.out_dir, crop_size=args.test_crop,
+                          device=args.device)
     print(json.dumps(out))
     return 0
 
@@ -152,26 +244,56 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="sradsgan_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("train", help="train a model")
+    def add_eval_model(p):
+        p.add_argument("--ckpt", help="a checkpoint cli train wrote "
+                       "(ckpt_epoch_N.pt, ckpt_best.pt)")
+        p.add_argument("--weights",
+                       help="JAX generator params as .npz (tools/from_jax.py)")
+
+    p = sub.add_parser("train", help="train a model (then eval by class)")
     _add_common(p)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--steps", type=int, default=None,
                    help="stop after N optimizer steps (smoke runs)")
     p.add_argument("--init-from", help="chain-training checkpoint")
     p.add_argument("--resume", help="resume from a checkpoint path")
+    p.add_argument("--save-img", action="store_true")
     p.add_argument("--no-final-eval", action="store_true")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_train)
 
+    p = sub.add_parser(
+        "chain-train",
+        help="paper protocol: train x2 -> x3 -> x4 -> x8 -> x9, each scale "
+             "warm-started from the previous best checkpoint")
+    _add_common(p)
+    p.add_argument("--scales", type=int, nargs="+", default=[2, 3, 4, 8, 9])
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_chain_train)
+
+    p = sub.add_parser("validate", help="mfeNew_validate protocol")
+    _add_common(p)
+    add_eval_model(p)
+    p.add_argument("--save-img", action="store_true")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_validate)
+
+    p = sub.add_parser("validate-by-class",
+                       help="mfeNew_validateByClass protocol (paper tables)")
+    _add_common(p)
+    add_eval_model(p)
+    p.add_argument("--save-img", action="store_true")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_validate_by_class)
+
     p = sub.add_parser("infer", help="single-image SR (mfe_test_single)")
     _add_common(p)
+    add_eval_model(p)
     p.add_argument("--image", required=True)
-    p.add_argument("--ckpt", help="a checkpoint cli train wrote "
-                   "(ckpt_epoch_N.pt, ckpt_best.pt)")
     p.add_argument("--out-dir", default="Result/single")
     p.add_argument("--test-crop", type=int, default=None)
-    p.add_argument("--weights",
-                   help="JAX generator params as .npz (tools/from_jax.py)")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_infer)
 

@@ -4,9 +4,10 @@ The fields the port reads, with the defaults of the JAX package's
 ``TrainConfig`` (``sradsgan_tpu/core/config.py``); a test holds the two sets
 of defaults equal.  Left out are the knobs of the TPU and its mesh:
 ``steps_per_call`` (a ``lax.scan`` of the step), ``num_devices`` and
-``data.device_degrade``.  :func:`load_config` reads the JSON the JAX
-package's ``save_config`` writes, ignores those three and refuses any other
-key it does not know.
+``data.device_degrade``.  :func:`save_config` writes a config as JSON;
+:func:`load_config` reads that and the JSON the JAX package's
+``save_config`` writes, ignores those three and refuses any other key it
+does not know.
 """
 
 from __future__ import annotations
@@ -101,6 +102,22 @@ _NESTED = {"data": DataConfig, "optim": OptimConfig, "gan": GanConfig}
 # Keys of the JAX package's config that the port has no use for.
 _TPU_KEYS = {TrainConfig: {"steps_per_call", "num_devices"},
              DataConfig: {"device_degrade"}}
+
+
+def _to_dict(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _to_dict(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [_to_dict(v) for v in obj]
+    return obj
+
+
+def save_config(cfg: TrainConfig, path: str) -> None:
+    """Write ``cfg`` as JSON, as the JAX package's ``save_config`` does;
+    :func:`load_config` (of either package) reads it back."""
+    with open(path, "w") as f:
+        json.dump(_to_dict(cfg), f, indent=2)
 
 
 def load_config(path: str) -> TrainConfig:

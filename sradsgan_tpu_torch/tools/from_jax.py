@@ -7,11 +7,13 @@ generator's param tree (nested dicts of arrays) and returns the port's
 patch discriminator (params and BatchNorm ``batch_stats``; the inverse of
 ``import_patch_discriminator``), and :func:`vgg19_state_dict` for the VGG19
 content features (the JAX param tree, or the ``.npz`` of
-``SRADSGAN_TPU_VGG19_NPZ`` read with :func:`load_npz`).  Conv kernels go
-HWIO -> OIHW, the CLAM's Dense kernels (in, out) -> bias-free 1x1 convs
-(out, in, 1, 1), the SLAM kernel
-(7, 7, 2, 1) -> (1, 2, 7, 7) with plane 0 the channel mean and plane 1 the
-channel max, and each ``gamma`` stays (1,).  The upsample conv is shared by
+``SRADSGAN_TPU_VGG19_NPZ`` read with :func:`load_npz`), and
+:func:`lpips_state_dict` for LPIPS (its trunk, as the ``.npz`` of
+``SRADSGAN_TPU_{ALEXNET,VGG16,SQUEEZENET}_NPZ`` holds it, and its heads).
+Conv kernels go HWIO -> OIHW, the CLAM's Dense kernels (in, out) ->
+bias-free 1x1 convs (out, in, 1, 1), the SLAM kernel (7, 7, 2, 1) -> (1, 2,
+7, 7) with plane 0 the channel mean and plane 1 the channel max, and each
+``gamma`` stays (1,).  The upsample conv is shared by
 every stage, so it maps once.
 
 A machine that serves the port needs no JAX or orbax, so JAX weights reach
@@ -27,6 +29,7 @@ from typing import Any, Dict, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from sradsgan_tpu_torch.losses.lpips import NETS as LPIPS_NETS
 from sradsgan_tpu_torch.losses.vgg import LAYERS as VGG_LAYERS
 from sradsgan_tpu_torch.models.discriminators import (ATTENTION_AFTER,
                                                       DEFAULT_BLOCKS)
@@ -159,6 +162,32 @@ def vgg19_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
         sd[f"features.{index}.weight"] = _oihw(params[name]["kernel"])
         sd[f"features.{index}.bias"] = np.asarray(params[name]["bias"],
                                                   np.float32)
+    return _as_tensors(sd)
+
+
+def lpips_state_dict(params: Tree, net: str) -> Dict[str, torch.Tensor]:
+    """JAX ``LPIPS(net)`` params (or ``{"params": ...}``) -> the port's
+    ``LPIPS`` state dict: the trunk's convs under ``net.`` (the flax names
+    ``conv{i}`` and ``fire{i}/{squeeze,expand1x1,expand3x3}`` are the port's
+    module names, kernels HWIO -> OIHW) and the heads ``lin{i}``.  Either
+    part may be missing: the loader of the trunk files passes the trunk
+    alone under its scope, the bundled heads alone come without one."""
+    if "params" in params:
+        params = params["params"]
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(node: Tree, path: str) -> None:
+        if "kernel" in node:
+            sd[f"net.{path}.weight"] = _oihw(node["kernel"])
+            sd[f"net.{path}.bias"] = np.asarray(node["bias"], np.float32)
+            return
+        for key, child in node.items():
+            walk(child, f"{path}.{key}" if path else key)
+
+    walk(params.get(LPIPS_NETS[net][2], {}), "")
+    for key, value in params.items():
+        if key.startswith("lin"):
+            sd[key] = np.asarray(value, np.float32)
     return _as_tensors(sd)
 
 

@@ -1,11 +1,12 @@
 """Where the time of one serving request goes on the card.
 
     python -m sradsgan_tpu_torch.tools.profile_serving [--dtype bfloat16]
-        [--rab-tail fused]
+        [--rab-tail fused] [--batch 8]
 
 Builds the full-width SRADSGAN x4 generator (seeded random weights), warms a
 ``serving.Predictor`` up on a batch of four 54^2 requests (the request
-``chip_smoke.py`` times), then serves five of them under
+``chip_smoke.py`` times; ``--batch 8`` is a batch of the evaluation
+protocol's sweep), then serves five of them under
 ``torch.profiler`` and prints the wall time per request, the device's busy
 share of that window (the sum of kernel times over the wall time; one
 stream, so kernels do not overlap) and the device time by kernel, largest
@@ -31,8 +32,9 @@ def main(argv=None) -> int:
                    default="float32")
     p.add_argument("--rab-tail", choices=["unfused", "fused"],
                    default="unfused")
+    p.add_argument("--batch", type=int, default=4)
     args = p.parse_args(argv)
-    batch, size, iters = 4, 54, 5
+    batch, size, iters = args.batch, 54, 5
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False

@@ -57,6 +57,7 @@ from sradsgan_tpu_torch.data.datasets import (build_test_dataset,
                                               build_train_dataset)
 from sradsgan_tpu_torch.data.loader import DataLoader, device_prefetch
 from sradsgan_tpu_torch.losses import gan as gan_losses
+from sradsgan_tpu_torch.losses.lpips import batched_lpips
 from sradsgan_tpu_torch.losses.pixel import pixel_loss
 from sradsgan_tpu_torch.losses.vgg import load_vgg19
 from sradsgan_tpu_torch.metrics.fidelity import (batched_ergas, batched_psnr,
@@ -105,10 +106,6 @@ class Trainer:
             raise RuntimeError(
                 f"Trainer(device={str(device)!r}) needs a CUDA device and "
                 "this torch sees none; pass device='cpu' to train on the CPU")
-        if cfg.val_lpips:
-            raise NotImplementedError(
-                "cfg.val_lpips needs LPIPS, which is not ported to PyTorch "
-                "yet (ROADMAP.md, Queue 1)")
         self.cfg = cfg
         self.spec = get_spec(cfg.model)
         self.g_bf16 = cfg.bf16
@@ -280,14 +277,21 @@ class Trainer:
     @torch.no_grad()
     def _eval_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """Per-image metrics of G(lr) and of the bicubic twin against hr,
-        each (B,) on the device."""
+        each (B,) on the device; with ``cfg.val_lpips`` also ``lpips`` and
+        ``bc_lpips`` (AlexNet LPIPS in float32, on the raw SR), so that the
+        sweep carries all five of the reference's metrics
+        (``sradsgan.py:1484-1496``)."""
         hr_img, bc_img = (self._to_device(batch[k]) for k in ("hr", "bc"))
         sr = self._eval_sr(batch["lr"])
-        return {"psnr": batched_psnr(sr, hr_img),
-                "ssim": batched_ssim(sr, hr_img),
-                "ergas": batched_ergas(sr, hr_img, self.cfg.scale),
-                "bc_psnr": batched_psnr(bc_img, hr_img),
-                "bc_ssim": batched_ssim(bc_img, hr_img)}
+        out = {"psnr": batched_psnr(sr, hr_img),
+               "ssim": batched_ssim(sr, hr_img),
+               "ergas": batched_ergas(sr, hr_img, self.cfg.scale),
+               "bc_psnr": batched_psnr(bc_img, hr_img),
+               "bc_ssim": batched_ssim(bc_img, hr_img)}
+        if self.cfg.val_lpips:
+            out["lpips"] = batched_lpips(sr, hr_img)
+            out["bc_lpips"] = batched_lpips(bc_img, hr_img)
+        return out
 
     def validate(self, max_batches: Optional[int] = None) -> Dict[str, float]:
         """Means of :meth:`_eval_step`'s metrics over the test set (its
@@ -399,7 +403,8 @@ class Trainer:
                 self.history[k].append(val[k])
             # The reference's elif chain: only the first improving metric
             # updates its stored best, and any improvement resets the
-            # counter and marks this epoch best.
+            # counter and marks this epoch best.  LPIPS, where the sweep
+            # has it, stays out of the chain, as in the JAX trainer.
             improved = True
             if val["psnr"] > best["psnr"]:
                 best["psnr"] = val["psnr"]

@@ -1,13 +1,16 @@
-"""The port's ``cli infer`` and ``cli train`` flags against what the JAX
-command does, on the CPU at tiny widths.
+"""The port's CLI against what the JAX command does, on the CPU at tiny
+widths.
 
 ``infer --ckpt`` reads the checkpoints ``cli train`` writes (the trainer's
 ``save_checkpoint`` and its ``ckpt_best.pt``) and writes the generator's own
 SR, truncated to uint8 as the reference does; ``infer`` forwards an image of
 any size as it is, as JAX ``Evaluator.super_resolve`` does (weights carried
-across by ``tools/from_jax.py``); ``train --lpips`` trains, the flag only
-feeding the final table that JAX prints after training; ``--ckpt`` and
-``--weights`` together are refused.
+across by ``tools/from_jax.py``); ``--ckpt`` and ``--weights`` together are
+refused.  ``validate`` and ``validate-by-class`` print what the evaluation
+functions return (their parity with JAX is ``test_torch_eval.py``), the
+latter also the CSV; ``train`` prints the by-class table after training,
+with LPIPS where ``--lpips`` asks; ``chain-train`` hands each scale the
+previous one's checkpoint.
 """
 
 import json
@@ -26,8 +29,11 @@ from sradsgan_tpu.evaluation.validate import (  # noqa: E402
 from sradsgan_tpu.models.sradsgan import (  # noqa: E402
     SRADSGANGenerator as JaxGenerator)
 from sradsgan_tpu_torch import cli, models  # noqa: E402
+from sradsgan_tpu_torch.config import DataConfig  # noqa: E402
 from sradsgan_tpu_torch.evaluation.tiled import forward_numpy  # noqa: E402
-from sradsgan_tpu_torch.evaluation.validate import Evaluator  # noqa: E402
+from sradsgan_tpu_torch.evaluation.validate import (  # noqa: E402
+    Evaluator, mfe_new_validate, mfe_new_validate_by_class, save_by_class_csv)
+from sradsgan_tpu_torch.losses.lpips import lpips_fn  # noqa: E402
 from sradsgan_tpu_torch.serving import Predictor  # noqa: E402
 from sradsgan_tpu_torch.tools.from_jax import (  # noqa: E402
     save_npz, sradsgan_state_dict)
@@ -134,8 +140,8 @@ def test_infer_forwards_an_image_off_every_bucket_as_jax_does(carried,
 
 
 def test_train_with_lpips_trains(tmp_path, monkeypatch, capsys):
-    """In JAX ``--lpips`` only reaches the by-class table after training;
-    here that table is not ported, so the flag reaches nothing."""
+    """As in JAX, ``--lpips`` only reaches the by-class table after
+    training, never the training's own config."""
     seen = []
     init = trainer_module.Trainer.__init__
 
@@ -155,3 +161,105 @@ def test_infer_refuses_ckpt_with_weights(tmp_path):
     with pytest.raises(SystemExit, match="not both"):
         cli.main(INFER + ["--image", image, "--ckpt", "a.pt", "--weights",
                           "b.npz"])
+
+
+VALIDATE = ["--device", "cpu", "--data", "synthetic", "--scale", str(SCALE),
+            "--model-kwargs", json.dumps(TINY)]
+
+
+def test_validate_prints_what_mfe_new_validate_returns(carried, tmp_path,
+                                                       capsys):
+    _, params, model = carried
+    npz = tmp_path / "g.npz"
+    save_npz(str(npz), params)
+    assert cli.main(["validate"] + VALIDATE + [
+        "--crop-size", "16", "--weights", str(npz), "--save-dir",
+        str(tmp_path / "run")]) == 0
+    got = json.loads(capsys.readouterr().out)
+    cfg = DataConfig(synthetic=True, crop_size=16, test_crop_size=16)
+    assert got == mfe_new_validate(model, cfg, SCALE, device="cpu")
+    assert set(got["sr"]) == {"mse", "psnr", "ssim", "ergas"}
+
+
+def test_validate_by_class_prints_the_table_and_writes_the_csv(
+        carried, tmp_path, capsys, monkeypatch):
+    """With ``--lpips`` and no trunk weights: the ``lpips*`` note, the
+    five-column table ending in Total, and a CSV with the LPIPS columns,
+    the bytes of ``save_by_class_csv`` of the same call made directly."""
+    monkeypatch.delenv("SRADSGAN_TPU_ALEXNET_NPZ", raising=False)
+    _, params, model = carried
+    npz = tmp_path / "g.npz"
+    save_npz(str(npz), params)
+    run = tmp_path / "run"
+    assert cli.main(["validate-by-class"] + VALIDATE + [
+        "--crop-size", "32", "--lpips", "--weights", str(npz),
+        "--save-dir", str(run)]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert "uncalibrated lpips*" in lines[0]
+    assert lines[1].split() == ["class", "PSNR", "SSIM", "ERGAS", "bcPSNR",
+                                "bcSSIM"]
+    assert [line.split()[0] for line in lines[2:4]] == ["all", "Total"]
+    csv = run / "SRADSGAN_x2" / "by_class_x2.csv"
+    assert lines[4] == f"table saved: {csv}"
+    cfg = DataConfig(synthetic=True, crop_size=32, test_crop_size=32)
+    table = mfe_new_validate_by_class(model, cfg, SCALE,
+                                      lpips_fn=lpips_fn(), device="cpu")
+    save_by_class_csv(table, str(tmp_path / "direct.csv"))
+    assert csv.read_bytes() == (tmp_path / "direct.csv").read_bytes()
+    assert csv.read_text().startswith(
+        "class,sr_ergas,sr_lpips,sr_mse,sr_psnr,sr_ssim,bc_ergas,bc_lpips,")
+
+
+@pytest.mark.parametrize("command", ["validate", "validate-by-class"])
+def test_eval_commands_refuse_ckpt_with_weights(command):
+    with pytest.raises(SystemExit, match="not both"):
+        cli.main([command] + VALIDATE + ["--ckpt", "a.pt", "--weights",
+                                         "b.npz"])
+
+
+def test_train_prints_the_by_class_table_after_training(tmp_path, capsys):
+    """Without ``--no-final-eval``, as every reference main does: the
+    final JSON line, then (``--lpips``) the note and the table of the
+    trained generator over the synthetic test set."""
+    argv = [a if a != "16" else "32" for a in TRAIN]  # LPIPS needs 32^2
+    assert cli.main(argv + ["--lpips", "--steps", "1", "--save-dir",
+                            str(tmp_path / "run")]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert "final" in json.loads(lines[-5])
+    assert "uncalibrated lpips*" in lines[-4]
+    assert lines[-3].split()[:4] == ["class", "PSNR", "SSIM", "ERGAS"]
+    assert [line.split()[0] for line in lines[-2:]] == ["all", "Total"]
+    assert np.isfinite([float(v) for v in lines[-1].split()[1:]]).all()
+
+
+def test_chain_train_hands_each_scale_the_previous_checkpoint(
+        tmp_path, monkeypatch, capsys):
+    """``--scales 2 3``: x3 starts from the checkpoint x2 wrote (here its
+    last epoch's: a one-step run writes no ckpt_best.pt), with every
+    tensor of the same shape taken from it."""
+    seen = []
+    init = trainer_module.Trainer.__init__
+
+    def spy(self, cfg, *args, **kwargs):
+        init(self, cfg, *args, **kwargs)
+        seen.append((cfg.scale, cfg.init_from,
+                     {k: v.clone() for k, v in
+                      self.generator.state_dict().items()}))
+    monkeypatch.setattr(trainer_module.Trainer, "__init__", spy)
+    run = tmp_path / "run"
+    argv = ["chain-train", "--scales", "2", "3", "--steps", "1", "--epochs",
+            "1", "--device", "cpu", "--data", "synthetic", "--crop-size",
+            "24", "--batch-size", "2", "--no-bf16", "--model-kwargs",
+            json.dumps(TINY), "--save-dir", str(run)]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    ckpt = str(run / "SRADSGAN_x2" / "ckpt_epoch_0.pt")
+    assert [(s, f) for s, f, _ in seen] == [(2, None), (3, ckpt)]
+    assert f"scale x2 done; next init_from={ckpt}" in out
+    assert set(json.loads(out[-1])) == {"x2", "x3"}
+    x2 = torch.load(ckpt, weights_only=True)["generator"]
+    x3 = seen[1][2]
+    same = [k for k in x3 if x3[k].shape == x2[k].shape]
+    assert len(same) == len(x3) - 2  # all but the upsample conv
+    for key in same:
+        assert torch.equal(x3[key], x2[key]), key

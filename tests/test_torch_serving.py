@@ -70,7 +70,18 @@ def test_predictor_defaults_to_cuda_and_says_so(generators):
         Predictor(generators[2], SCALE)
 
 
-def test_port_imports_no_jax_flax_or_pil():
+def test_port_imports_no_jax_flax_or_pil(tmp_path):
+    """Importing the port and chip_smoke, and running the evaluation
+    commands that the card's machine runs (no Pillow, no matplotlib there):
+    ``validate-by-class`` and ``train`` with its final table, both with
+    LPIPS, on the synthetic set at tiny sizes."""
+    tiny = json.dumps({"base_filters": 16, "n_groups": 1, "n_blocks": 1})
+    flags = ["--device", "cpu", "--data", "synthetic", "--scale", "2",
+             "--crop-size", "32", "--lpips", "--save-dir", str(tmp_path),
+             "--model-kwargs", tiny]
+    commands = [["validate-by-class"] + flags,
+                ["train", "--steps", "1", "--batch-size", "2", "--no-bf16"]
+                + flags]
     code = ("import json, sys\n"
             "import sradsgan_tpu_torch, sradsgan_tpu_torch.serving\n"
             "import sradsgan_tpu_torch.cli, sradsgan_tpu_torch.models\n"
@@ -89,6 +100,10 @@ def test_port_imports_no_jax_flax_or_pil():
             "import sradsgan_tpu_torch.metrics.fidelity\n"
             "import sradsgan_tpu_torch.utils.logging\n"
             "import sradsgan_tpu_torch.evaluation.validate\n"
+            "import sradsgan_tpu_torch.losses.lpips\n"
+            "import sradsgan_tpu_torch.utils.plotting\n"
+            f"for argv in {commands!r}:\n"
+            "    assert sradsgan_tpu_torch.cli.main(argv) == 0\n"
             "from sradsgan_tpu_torch.data.datasets import SyntheticDataset\n"
             "SyntheticDataset(2, 4, 16).load(0)\n"
             "print(json.dumps({m: m in sys.modules\n"

@@ -22,7 +22,7 @@ from sradsgan_tpu.models.sradsgan import (  # noqa: E402
     SRADSGANGenerator as JaxG)
 from sradsgan_tpu.train import trainer as jax_trainer_module  # noqa: E402
 from sradsgan_tpu_torch import cli, models  # noqa: E402
-from sradsgan_tpu_torch.config import load_config  # noqa: E402
+from sradsgan_tpu_torch.config import load_config, save_config  # noqa
 from sradsgan_tpu_torch.data.datasets import SyntheticDataset  # noqa: E402
 from sradsgan_tpu_torch.losses import gan as gan_losses  # noqa: E402
 from sradsgan_tpu_torch.tools.from_jax import (  # noqa: E402
@@ -155,13 +155,6 @@ def test_validate_counts_each_image_once(tmp_path):
     assert pt.generator.training  # the sweep leaves the mode as it was
 
 
-def test_val_lpips_is_refused_until_lpips_is_ported(tmp_path):
-    _, port_cfg = _both_configs(tmp_path)
-    port_cfg.val_lpips = True
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        Trainer(port_cfg, device="cpu")
-
-
 def test_partial_restore_keeps_what_the_jax_one_keeps():
     """Chain init x2 -> x4: the same tensors restored and re-initialized as
     by the JAX package's partial_restore (only the upsample conv differs
@@ -249,13 +242,6 @@ def test_cli_train_runs_two_steps(tmp_path, capsys):
     assert len(archived) == 1 and (archived[0] / "stale.txt").exists()
 
 
-def test_cli_train_refuses_the_missing_final_eval_before_training(tmp_path):
-    save_dir = tmp_path / "run"
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(CLI_ARGS + ["--steps", "2", "--save-dir", str(save_dir)])
-    assert not save_dir.exists()
-
-
 def test_cli_train_one_epoch_writes_the_run_directory(tmp_path, capsys):
     cfg = models.config_for_model("sradsgan", 2, bf16=False,
                                   save_dir=str(tmp_path / "run"),
@@ -316,3 +302,21 @@ def test_load_config_refuses_an_unknown_key(tmp_path, where):
     path.write_text(json.dumps(raw))
     with pytest.raises(ValueError, match="crop_sise"):
         load_config(str(path))
+
+
+def test_save_config_round_trips_through_both_packages(tmp_path):
+    """The port's ``save_config`` writes what its own ``load_config`` and
+    the JAX package's read back: every field the two configs share."""
+    from sradsgan_tpu.core.config import load_config as jax_load
+    cfg = models.config_for_model("sradsgan", 3, model_kwargs=TINY)
+    cfg.data.crop_size = 48
+    cfg.optim.step_decay_epochs = 7
+    cfg.val_lpips = True
+    path = tmp_path / "port.json"
+    save_config(cfg, str(path))
+    got = load_config(str(path))
+    assert _fields(got) == _fields(cfg)
+    assert got.data.train_datasets == cfg.data.train_datasets
+    jax_cfg = jax_load(str(path))
+    want = _fields(jax_cfg)
+    assert _fields(cfg) == {k: want[k] for k in _fields(cfg)}
