@@ -77,7 +77,18 @@ Phases, each of which raises (exit code 1) on failure:
    within 1e-4 relative, each row within ROW_BARS); then ``cli
    validate-by-class`` (its table and its CSV's LPIPS columns) and ``cli
    train`` with its final table, both with ``--lpips`` at 64^2, with their
-   launch counts.
+   launch counts;
+9. the model zoo: the seven other generators (EDSR, SRGAN, DRCAN, DSSR,
+   SRAGAN, NDSRGAN, AMSSRN) at x4 and their published widths and depths,
+   seeded fan-in weights with every gain non-zero: a batch of four 54^2
+   requests on the card against the CPU plain path, bf16 against float32,
+   the request's latency; SRAGAN, whose 72 CA-SA tails, PAM and CBAM D run
+   the kernels, also fused, then its train step against float64 (3 groups,
+   each tensor held to the fixed bars or, where float32 steps without the
+   kernels miss them, to twice what those read: SRAGAN_CHECK) and timed at
+   batch 16 with exact launches;
+   a bf16 step of SRGAN, DRCAN and NDSRGAN; ``cli train --model X`` for
+   each of the seven at small widths.
 
 It prints the kernels' record as one JSON line before the last, and ends
 with ``{"ok": true, "device": {...}}``.
@@ -94,6 +105,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -108,8 +120,11 @@ from sradsgan_tpu_torch.evaluation.tiled import forward_numpy
 from sradsgan_tpu_torch.evaluation.validate import (
     Evaluator, _score_pair, format_by_class_table, mfe_new_validate_by_class)
 from sradsgan_tpu_torch.losses.lpips import lpips_fn, lpips_is_calibrated
-from sradsgan_tpu_torch.models import create_generator
-from sradsgan_tpu_torch.nn.attention import LocalAttention
+from sradsgan_tpu_torch.models import (config_for_model, create_discriminator,
+                                       create_generator, get_spec)
+from sradsgan_tpu_torch.nn.attention import (ChannelGate, LocalAttention,
+                                             SpatialGate,
+                                             SpatialSelfAttention)
 from sradsgan_tpu_torch.ops import (_build, pooling, rab_tail, sgam_flash,
                                     spatial_gate)
 from sradsgan_tpu_torch.serving import Predictor
@@ -710,21 +725,33 @@ def latency_ms(pred: Predictor, x: np.ndarray, iters: int = 10) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def _n_gates(generator) -> int:
-    """Local attentions of a generator: one per RAB and one per group."""
-    return len(generator.res_groups) * (len(generator.res_groups[0].RG) + 1)
+def _count(model, kind) -> int:
+    return sum(isinstance(m, kind) for m in model.modules())
+
+
+def _pools(model) -> int:
+    """Channel gates that take the fused avg+max pool (DSSR's "Avg" gates
+    take a plain mean)."""
+    return sum(isinstance(m, ChannelGate) and m.pool_mode == "Avg|Max"
+               for m in model.modules())
 
 
 def forward_launches(generator, forwards: int = 1) -> dict:
-    """Kernel launches of ``forwards`` no-grad generator forwards: per
-    local attention a pool (K1) and a gate (K2), or, fused, one RAB tail
-    (K6, which pools inside its own launch); the SGAM (K3) once."""
-    fused = generator.res_groups[0].rab_tail == "fused"
-    gates = forwards * _n_gates(generator)
-    return {"avg_max_pool": 0 if fused else gates,
-            "spatial_gate": 0 if fused else gates,
-            "position_attention": forwards, "spatial_gate_bwd": 0,
-            "position_attention_bwd": 0, "rab_tail": gates if fused else 0}
+    """Kernel launches of ``forwards`` no-grad generator forwards, from the
+    module structure: per local attention a pool (K1) and a gate (K2), or,
+    fused, one RAB tail (K6, which pools inside its own launch); the
+    attention kernel (K3) once per SGAM/PAM.  The local attentions are one
+    per RAB and one per group in SRADSGAN (48), one per BasicBlock and one
+    per group in SRAGAN (72)."""
+    fused = sum(isinstance(m, LocalAttention) and m.rab_tail == "fused"
+                for m in generator.modules())
+    return {"avg_max_pool": forwards * (_pools(generator) - fused),
+            "spatial_gate": forwards * (_count(generator, SpatialGate)
+                                        - fused),
+            "position_attention": forwards * _count(
+                generator, SpatialSelfAttention),
+            "spatial_gate_bwd": 0, "position_attention_bwd": 0,
+            "rab_tail": forwards * fused}
 
 
 def phase_serving(smi: str, k3_ms: dict) -> dict:
@@ -837,28 +864,30 @@ def phase_serving(smi: str, k3_ms: dict) -> dict:
 
 
 def step_launches(trainer) -> dict:
-    """Kernel launches one train step makes, from the module structure: a
-    pool (K1) and a gate (K2) in each of the generator's local attentions
-    and in the discriminator's CBAM, for each of the step's four D forwards
-    (sr in the G step, hr, sr.detach() and the interpolates); K3 and K5 once
-    for the SGAM.  The gate backward (K4) runs once per gate of the
-    generator's backward and five times in the discriminator: the backward
-    through D(sr) in the G step, the penalty's gradient (the inner
-    backward), and in the D step's backward through D(hr), D(sr.detach())
-    and, from the penalty's second order reaching the gate's output through
-    the BatchNorms after it, D(interpolates).  With fused RAB tails the
-    generator's pools and gates are one K6 launch each, whose backward
-    still runs K4 for its SLAM part."""
+    """Kernel launches one train step makes, from the module structure: the
+    generator's forward (:func:`forward_launches`), and a pool (K1) and a
+    gate (K2) in the discriminator's CBAM for each of the step's D forwards
+    (sr in the G step, hr, sr.detach() and, for WGAN-GP, the
+    interpolates); K5 once per SGAM.  The gate backward (K4) runs once per
+    gate of the generator's backward (a fused tail's backward still runs K4
+    for its SLAM part) and, per gate of the discriminator, once per D
+    forward that the losses backpropagate through plus, for WGAN-GP, the
+    penalty's inner gradient: five times (the backward through D(sr) in the
+    G step, the penalty's gradient, and in the D step's backward through
+    D(hr), D(sr.detach()) and, from the penalty's second order reaching the
+    gate's output through the BatchNorms after it, D(interpolates))."""
     g = trainer.generator
-    n_gates = _n_gates(g)
-    fused = g.res_groups[0].rab_tail == "fused"
-    d_forwards = 4
-    return {"avg_max_pool": (0 if fused else n_gates) + d_forwards,
-            "spatial_gate": (0 if fused else n_gates) + d_forwards,
-            "position_attention": 1,
-            "spatial_gate_bwd": n_gates + 5,
-            "position_attention_bwd": 1,
-            "rab_tail": n_gates if fused else 0}
+    counts = forward_launches(g)
+    d_gates = (_count(trainer.discriminator, SpatialGate)
+               if trainer.discriminator is not None else 0)
+    wgan = trainer.cfg.gan.gan_type == "wgan-gp"
+    d_forwards = 4 if wgan else 3
+    counts["avg_max_pool"] += d_forwards * d_gates
+    counts["spatial_gate"] += d_forwards * d_gates
+    counts["spatial_gate_bwd"] = (_count(g, SpatialGate)
+                                  + (d_forwards + wgan) * d_gates)
+    counts["position_attention_bwd"] = counts["position_attention"]
+    return counts
 
 
 def fan_in_init(model: torch.nn.Module, seed: int) -> None:
@@ -900,11 +929,21 @@ def zero_by_math(model: torch.nn.Module) -> set:
     return names
 
 
+# The gradient checks (phase_train_correctness): the model, its generator's
+# arguments, gains that differ from make_trainer's 0.5, and the bars.
+FLAGSHIP_CHECK = {"model": "sradsgan", "model_kwargs": {}, "gains": {},
+                  "tol": GRAD_TOL}
+
+
 def _fan_in_trainer(device: str, float64: bool = False,
-                    rab_tail: str = "unfused"):
-    trainer = make_trainer("f32", device=device, rab_tail=rab_tail)
+                    rab_tail: str = "unfused", check: dict = FLAGSHIP_CHECK):
+    trainer = make_trainer("f32", device=device, rab_tail=rab_tail,
+                           model=check["model"], **check["model_kwargs"])
     for net in (trainer.generator, trainer.discriminator):
         fan_in_init(net, seed=3)
+    with torch.no_grad():
+        for name, value in check["gains"].items():
+            trainer.generator.get_parameter(name).fill_(value)
     if float64:
         for net in (trainer.generator, trainer.discriminator, trainer.vgg):
             net.double()
@@ -919,21 +958,21 @@ def _grad_errors(got, ref, skip) -> list:
                   reverse=True)
 
 
-def _cpu_step(batch, float64: bool, rab_tail: str):
-    trainer = _fan_in_trainer("cpu", float64, rab_tail)
+def _cpu_step(batch, float64: bool, rab_tail: str, check: dict):
+    trainer = _fan_in_trainer("cpu", float64, rab_tail, check)
     t0 = time.perf_counter()
     metrics = trainer.train_step(batch, torch.Generator().manual_seed(7))
     return trainer, metrics, time.perf_counter() - t0
 
 
-def _d_sensitivity(batch, size: float) -> tuple:
+def _d_sensitivity(batch, size: float, check: dict) -> tuple:
     """(worst |change| over max |grad|, its name) of the card's D gradients
     when every pixel of the unfused sr moves by +-``size`` of sr's largest,
     the sign drawn from a seed: two D steps from the same weights, batch and
     penalty weights, which differ in that perturbation alone."""
     grads = []
     for perturbed in (False, True):
-        trainer = _fan_in_trainer("cuda")
+        trainer = _fan_in_trainer("cuda", check=check)
         hr = trainer._to_device(batch["hr"])
         sr = trainer._eval_sr(batch["lr"])
         if perturbed:
@@ -947,11 +986,172 @@ def _d_sensitivity(batch, size: float) -> tuple:
     return max((_max_rel(g, grads[0][n]), n) for n, g in grads[1].items())
 
 
-def phase_train_correctness(rab_tail: str, unfused_card=None) -> dict:
-    """One float32 step on the card against the CPU plain path's step in
-    float64, from the same weights, batch and penalty weights, with the
-    RAB tails unfused or fused on both sides; returns the step's launch
-    counts, the gradient report and the card's own sr and D gradients.
+def _plain_attention(q, k, v, with_lse: bool = False):
+    out = sgam_flash.position_attention_plain(q, k, v)
+    if not with_lse:
+        return out
+    with torch.autocast(q.device.type, enabled=False):
+        energy = torch.bmm(q.float(), k.float().transpose(1, 2))
+    return out, torch.logsumexp(energy, dim=-1)
+
+
+def _plain_gate_bwd(x, w, g, with_dw: bool = True):
+    return spatial_gate.spatial_gate_bwd_plain(x, w, g)
+
+
+# Each kernel's wrapper, by the module attribute its callers look it up
+# through, and the plain version that stands in for it in the kernel-free
+# control (kernels_swapped_for_plain).
+PLAIN_STAND_INS = (
+    (pooling, "avg_max_pool_cuda", pooling.avg_max_pool_plain),
+    (spatial_gate, "spatial_gate_cuda",
+     lambda x, w, rows=None: spatial_gate.spatial_gate_plain(x, w)),
+    (spatial_gate, "spatial_gate_bwd_cuda", _plain_gate_bwd),
+    (rab_tail, "spatial_gate_bwd_cuda", _plain_gate_bwd),
+    (sgam_flash, "position_attention_cuda", _plain_attention),
+    (sgam_flash, "position_attention_bwd_cuda",
+     lambda q, k, v, out, dout, lse:
+     sgam_flash.position_attention_bwd_plain(q, k, v, dout)),
+    (rab_tail, "rab_tail_cuda", rab_tail.rab_tail_plain),
+)
+
+
+@contextlib.contextmanager
+def kernels_swapped_for_plain():
+    """Every kernel of the port replaced by its plain PyTorch version on
+    the card, for the kernel-free control of a gradient check."""
+    saved = [(mod, name, getattr(mod, name))
+             for mod, name, _ in PLAIN_STAND_INS]
+    try:
+        for mod, name, plain in PLAIN_STAND_INS:
+            setattr(mod, name, plain)
+        yield
+    finally:
+        for mod, name, kernel in saved:
+            setattr(mod, name, kernel)
+
+
+def _kernel_free(rab_tail_mode: str, check: dict, run):
+    """``run(trainer)`` on a fresh card trainer with every kernel swapped
+    for its plain version; fails if a kernel launched all the same."""
+    reset_launches()
+    with kernels_swapped_for_plain():
+        trainer = _fan_in_trainer("cuda", rab_tail=rab_tail_mode, check=check)
+        run(trainer)
+        torch.cuda.synchronize()
+    launched = {k: n for k, n in read_launches().items() if n}
+    if launched:
+        fail(f"the kernel-free control launched kernels: {launched}")
+    return trainer
+
+
+def _d_step_from(trainer, batch: dict, sr: torch.Tensor):
+    """The trainer's D step on ``sr`` (cast to its dtype and device), with
+    the check's penalty weights; returns the trainer."""
+    hr = trainer._to_device(batch["hr"])
+    trainer._d_step(hr, sr.to(hr), torch.Generator().manual_seed(7), {})
+    return trainer
+
+
+# SRAGAN's gradient check (SRAGAN_CHECK, "kernel_free_control") holds each
+# gradient tensor t of the card's step to max(GRAD_TOL[net], CONTROL_FACTOR
+# * c(t)), c(t) being the larger reading at t of two float32 steps without
+# the port's kernels: the card's own, every kernel swapped for its plain
+# version, and the CPU's.  CONTROL_FACTOR is the flagship rule's "twice the
+# worst float32 reading".
+CONTROL_FACTOR = 2.0
+
+
+def _grads_against_controls(card, sr, batch, ref, control, rab_tail_mode,
+                            check, report, faults) -> None:
+    """The gradient report of a check whose float32 steps cannot meet
+    GRAD_TOL (SRAGAN's).  G: the card's step against the CPU's float64
+    step, beside the two kernel-free float32 steps.  D: the D step from
+    the card's own ``sr`` on every side (the card's step, float64, the CPU's
+    float32, the card's without kernels), since the D's gradients move by
+    parts in 10^2 when sr moves by parts in 10^7; the whole step's D
+    readings are printed too.  Each tensor t must stay within
+    max(GRAD_TOL[net], CONTROL_FACTOR * c(t)) of max|ref(t)|."""
+    model_name = check["model"]
+    free = _kernel_free(rab_tail_mode, check, lambda t: t.train_step(
+        batch, torch.Generator().manual_seed(7)))
+    d_sides = {"card": card, "ref": _d_step_from(
+        _fan_in_trainer("cpu", True, rab_tail_mode, check), batch, sr.cpu()),
+        "free": _kernel_free(rab_tail_mode, check,
+                             lambda t: _d_step_from(t, batch, sr)),
+        "control": _d_step_from(
+            _fan_in_trainer("cpu", False, rab_tail_mode, check), batch,
+            sr.cpu())}
+    sides = {"generator": (card, ref, free, control),
+             "discriminator": tuple(d_sides[k] for k in
+                                    ("card", "ref", "free", "control"))}
+    d_whole = [_grad_errors(t.discriminator, ref.discriminator,
+                            zero_by_math(ref.discriminator))[0]
+               for t in (card, free, control)]
+    print(f"{model_name} train step ({rab_tail_mode}) discriminator "
+          "gradients of the whole step against float64's, worst of "
+          "max|ref|: " + ", ".join(
+              f"{side} {n} {e:.3e}" for side, (e, n) in zip(
+                  ("card", "card without kernels", "CPU float32"), d_whole)))
+    for net, (mine, reference, no_kernels, cpu32) in sides.items():
+        model, reference = getattr(mine, net), getattr(reference, net)
+        scale = max(float(p.grad.abs().max()) for p in reference.parameters())
+        zero = zero_by_math(model)
+        zero_worst = max(float(p.grad.abs().max()) / scale
+                         for n, p in model.named_parameters() if n in zero)
+        errs = {n: e for e, n in _grad_errors(model, reference, zero)}
+        free_errs = {n: e for e, n in _grad_errors(
+            getattr(no_kernels, net), reference, zero)}
+        cpu_errs = {n: e for e, n in _grad_errors(getattr(cpu32, net),
+                                                  reference, zero)}
+        bar = check["tol"][net]
+        allowed = {n: max(bar, CONTROL_FACTOR * max(free_errs[n],
+                                                    cpu_errs[n]))
+                   for n in errs}
+        ratio, at = max((errs[n] / allowed[n], n) for n in errs)
+        worst = {side: max((e, n) for n, e in d.items()) for side, d in
+                 (("card", errs), ("free", free_errs), ("cpu", cpu_errs))}
+        report[net] = {
+            "worst": worst["card"][1], "err": worst["card"][0],
+            "free_worst": worst["free"][1], "free_err": worst["free"][0],
+            "control_worst": worst["cpu"][1], "control_err": worst["cpu"][0],
+            "held_at": at, "held_err": errs[at], "allowed": allowed[at],
+            "ratio": ratio, "tol": bar, "factor": CONTROL_FACTOR,
+            "zero_by_math_worst": zero_worst, "tensors": len(errs)}
+        meet = [label for side, label in (("card", "card"), (
+            "free", "card without kernels"), ("cpu", "CPU float32"))
+            if worst[side][0] <= bar]
+        what = ("step" if net == "generator"
+                else "D step from the card's sr")
+        print(f"{model_name} train step ({rab_tail_mode}) {net} gradients "
+              f"of the {what} against float64's, {len(errs)} tensors, "
+              "worst of max|ref|: card "
+              f"{worst['card'][1]} {worst['card'][0]:.3e}, card without "
+              f"kernels {worst['free'][1]} {worst['free'][0]:.3e}, CPU "
+              f"float32 {worst['cpu'][1]} {worst['cpu'][0]:.3e}; the fixed "
+              f"bar {bar:.0e} met by: {', '.join(meet) or 'none'}; each "
+              f"tensor held to max({bar:.0e}, {CONTROL_FACTOR:g} x the "
+              "larger kernel-free reading there): worst "
+              f"{at} {errs[at]:.3e} of {allowed[at]:.3e} allowed "
+              f"({ratio:.2f}); {len(zero)} zero by the math, card's largest "
+              f"{zero_worst:.3e} of the network's largest (tol "
+              f"{ZERO_TOL:.0e})")
+        if not ratio <= 1.0:
+            faults.append(f"{net} gradient {at} differs from float64 by "
+                          f"{errs[at]:.3e} of max|ref|, over the "
+                          f"{allowed[at]:.3e} its kernel-free controls allow")
+        if not zero_worst <= ZERO_TOL:
+            faults.append(f"a {net} gradient that is zero by the math "
+                          f"reaches {zero_worst:.3e} of the largest")
+
+
+def phase_train_correctness(rab_tail: str, unfused_card=None,
+                            check: dict = FLAGSHIP_CHECK) -> dict:
+    """One float32 step of the x4 trainer that ``check`` describes (the
+    flagship's by default) on the card against the CPU plain path's step in
+    float64, from the same weights, batch and penalty weights, with the RAB
+    tails unfused or fused on both sides; returns the step's launch counts,
+    the gradient report and the card's own sr and D gradients.
 
     ``unfused_card`` is that last item of the unfused run.  The D's code is
     the same fused or not and the tails reach it through sr alone, so the
@@ -965,34 +1165,51 @@ def phase_train_correctness(rab_tail: str, unfused_card=None) -> dict:
     moves some of them by parts in 10^3 of their tensor's largest.  The
     reference is therefore float64, and the CPU's own float32 step is the
     control: it must pass the same fixed bound, or the bound says nothing
-    about the card."""
+    about the card.  A check with ``kernel_free_control`` (SRAGAN's, whose
+    float32 steps miss that bound) holds each tensor to its kernel-free
+    controls instead (:func:`_grads_against_controls`)."""
     batch = make_batch(batch=2, seed=1)
-    card = _fan_in_trainer("cuda", rab_tail=rab_tail)
+    model_name = check["model"]
+    card = _fan_in_trainer("cuda", rab_tail=rab_tail, check=check)
     mine = {"sr": card._eval_sr(batch["lr"]).cpu()}
+    if check.get("kernel_free_control"):  # keep the sr the D step takes
+        d_step = card._d_step
+
+        def d_step_keeping_sr(hr, sr, *args):
+            mine["step_sr"] = sr
+            return d_step(hr, sr, *args)
+        card._d_step = d_step_keeping_sr
     reset_launches()
     got = card.train_step(batch, torch.Generator().manual_seed(7))
     torch.cuda.synchronize()
     launches = read_launches()
     want_launches = step_launches(card)
-    print(f"train step launches (batch 2, f32, {rab_tail}): {launches}")
+    print(f"{model_name} train step launches (batch 2, f32, {rab_tail}): "
+          f"{launches}")
     if launches != want_launches:
         fail(f"train step launch counts {launches} differ from the "
              f"module structure's {want_launches}")
 
-    ref, want, ref_s = _cpu_step(batch, True, rab_tail)
-    control, control_metrics, control_s = _cpu_step(batch, False, rab_tail)
+    ref, want, ref_s = _cpu_step(batch, True, rab_tail, check)
+    control, control_metrics, control_s = _cpu_step(batch, False, rab_tail,
+                                                    check)
     for key in ("loss_G", "loss_D", "pixel", "content", "adv_g"):
         w = float(want[key])
         for side, metrics in (("card", got), ("CPU float32", control_metrics)):
             g = float(metrics[key])
             if not abs(g - w) <= LOSS_TOL * max(abs(w), 1e-2):
                 fail(f"train step {key}: {side} {g!r} vs CPU float64 {w!r}")
-    print("train step losses, card / CPU float32 / CPU float64: "
-          + ", ".join(f"{k} {float(got[k]):.8e} / "
+    print(f"{model_name} train step losses, card / CPU float32 / CPU "
+          "float64: " + ", ".join(f"{k} {float(got[k]):.8e} / "
                       f"{float(control_metrics[k]):.8e} / {float(want[k]):.8e}"
                       for k in ("loss_G", "loss_D")))
     report, faults = {}, []
-    for net in ("generator", "discriminator"):
+    nets = ("generator", "discriminator")
+    if check.get("kernel_free_control"):
+        _grads_against_controls(card, mine.pop("step_sr"), batch, ref,
+                                control, rab_tail, check, report, faults)
+        nets = ()
+    for net in nets:
         model, reference = getattr(card, net), getattr(ref, net)
         scale = max(float(p.grad.abs().max()) for p in reference.parameters())
         zero = zero_by_math(model)
@@ -1000,15 +1217,15 @@ def phase_train_correctness(rab_tail: str, unfused_card=None) -> dict:
                          for n, p in model.named_parameters() if n in zero)
         errs = _grad_errors(model, reference, zero)
         ctrl = _grad_errors(getattr(control, net), reference, zero)
-        tol = GRAD_TOL[net]
+        tol = check["tol"][net]
         control_at_worst = dict((n, e) for e, n in ctrl)[errs[0][1]]
         report[net] = {"worst": errs[0][1], "err": errs[0][0],
                        "control_worst": ctrl[0][1], "control_err": ctrl[0][0],
                        "control_at_worst": control_at_worst,
                        "tol": tol, "zero_by_math_worst": zero_worst,
                        "tensors": len(errs)}
-        print(f"train step ({rab_tail}) {net} gradients against the CPU "
-              "float64 step: "
+        print(f"{model_name} train step ({rab_tail}) {net} gradients "
+              "against the CPU float64 step: "
               f"{len(errs)} tensors; card worst of max|ref|: "
               + ", ".join(f"{n} {e:.3e}" for e, n in errs[:4])
               + "; CPU float32 (control) worst: "
@@ -1028,8 +1245,12 @@ def phase_train_correctness(rab_tail: str, unfused_card=None) -> dict:
         if not zero_worst <= ZERO_TOL:
             faults.append(f"a {net} gradient that is zero by the math "
                           f"reaches {zero_worst:.3e} of the largest")
-    for key in ("GAB_UP.sa.query_conv.weight", "GAB_UP.sa.gamma"):
-        if not float(card.generator.get_parameter(key).grad.abs().max()) > 0:
+    sgam = {key: p for key, p in card.generator.named_parameters()
+            if key.endswith(("sa.query_conv.weight", "sa.gamma"))}
+    if not sgam:
+        faults.append("the generator has no SGAM parameter to check")
+    for key, p in sgam.items():
+        if not float(p.grad.abs().max()) > 0:
             faults.append(f"the SGAM gradient {key} is zero")
     print(f"CPU steps took {ref_s:.1f} s (float64) and {control_s:.1f} s "
           "(float32)")
@@ -1049,7 +1270,7 @@ def phase_train_correctness(rab_tail: str, unfused_card=None) -> dict:
               "max; D gradients of max|unfused|, worst: "
               + ", ".join(f"{n} {e:.3e}" for e, n in moved[:3])
               + f", at {worst} {report['vs_unfused_card']['d_at_worst']:.3e}")
-        noise_err, noise_at = _d_sensitivity(batch, sr_err)
+        noise_err, noise_at = _d_sensitivity(batch, sr_err, check)
         report["vs_unfused_card"].update(noise_err=noise_err,
                                          noise_at=noise_at)
         print(f"unfused card, sr moved by +-{sr_err:.3e} of its max at "
@@ -1121,17 +1342,19 @@ def phase_validation_batch() -> dict:
     return out
 
 
-def phase_train_timing(smi: str) -> dict:
+def phase_train_timing(smi: str, model: str = "sradsgan") -> dict:
     """ms per step and MP/s of HR output at batch 16, float32 and mixed
-    precision, RAB tails unfused and fused in turn; returns the timings and
-    each variant's first-step launches."""
+    precision, RAB tails unfused and fused in turn, for ``model``'s x4
+    trainer; returns the timings and each variant's first-step
+    launches."""
     batch = make_batch()
     mpix = 16 * 216 * 216 / 1e6
     out = {}
+    what = "" if model == "sradsgan" else f"{model} "
     for precision in ("f32", "bf16"):
         for rab in ("unfused", "fused"):
             label = precision if rab == "unfused" else f"fused_{precision}"
-            trainer = make_trainer(precision, rab_tail=rab)
+            trainer = make_trainer(precision, rab_tail=rab, model=model)
             reset_launches()
             metrics = trainer.train_step(batch)
             torch.cuda.synchronize()
@@ -1155,7 +1378,7 @@ def phase_train_timing(smi: str) -> dict:
             out[f"{label}_ms_per_step"] = ms
             out[f"{label}_mp_per_s"] = mpix / (ms / 1e3)
             out[f"{label}_peak_gib"] = peak
-            print(f"train step batch 16 x 54^2 -> 216^2 {label}: "
+            print(f"{what}train step batch 16 x 54^2 -> 216^2 {label}: "
                   f"{ms:.2f} ms/step, {mpix / (ms / 1e3):.3f} MP/s of HR "
                   f"output, peak {peak:.2f} GiB; losses {losses} [{smi}]")
             del trainer, metrics
@@ -1438,6 +1661,248 @@ def phase_eval_protocol(smi: str) -> dict:
     return out
 
 
+# The model zoo (phase_model_zoo): the seven generators beside the
+# flagship, at their published widths and depths (the JAX defaults).
+ZOO = ("edsr", "srgan", "drcan", "dssr", "sragan", "ndsrgan", "amssrn")
+ZOO_GAN_STEPS = ("srgan", "drcan", "ndsrgan")
+# SRAGAN's step at full width and depth, from the module structure (72
+# tails, the CBAM D, one PAM): checked against the launches themselves.
+SRAGAN_STEP_LAUNCHES = {
+    "unfused": {"avg_max_pool": 76, "spatial_gate": 76,
+                "position_attention": 1, "spatial_gate_bwd": 77,
+                "position_attention_bwd": 1, "rab_tail": 0},
+    "fused": {"avg_max_pool": 4, "spatial_gate": 4, "position_attention": 1,
+              "spatial_gate_bwd": 77, "position_attention_bwd": 1,
+              "rab_tail": 72}}
+# SRAGAN's gradient check: full width, 3 of the 12 groups (which bounds the
+# CPU's float64 step), both attention gains 0.5 as make_trainer sets them,
+# the flagship's fixed bars.  No float32 step of SRAGAN meets those bars,
+# with or without the port's kernels: its BatchNorms, the LeakyReLU kinks
+# right after them and the CGAM's saturated softmax amplify rounding (the
+# D's gradients move by parts in 10^2 of their largest when sr moves by
+# parts in 10^7 of its own, _d_sensitivity).  So each tensor is held to
+# max(bar, CONTROL_FACTOR x the larger reading there of the card's step
+# without kernels and the CPU's float32 step), the D's on its step from
+# the card's own sr (_grads_against_controls).
+SRAGAN_CHECK = {"model": "sragan", "model_kwargs": {"n_groups": 3},
+                "gains": {}, "tol": GRAD_TOL, "kernel_free_control": True}
+# cli train at small widths (SRAGAN at its width, the kernels' own, and
+# one group of two blocks, fused)
+ZOO_CLI_KWARGS = {
+    "edsr": {"base_filters": 16, "num_residuals": 2},
+    "srgan": {"base_filters": 16, "num_residuals": 2},
+    "drcan": {"n_feats": 16, "n_resgroups": 1, "n_resblocks": 2},
+    "dssr": {"n_feats": 16, "n_groups": 1, "n_blocks": 2},
+    "sragan": {"n_groups": 1, "n_blocks": 2, "rab_tail": "fused"},
+    "ndsrgan": {"nf": 16, "nc": 8, "n_dcrdb": 1},
+    "amssrn": {"n_feats": 16, "n_blocks": 2},
+}
+
+
+def zoo_init(model: torch.nn.Module, seed: int) -> None:
+    """:func:`fan_in_init`, then BatchNorm scales uniform(0.5, 1.5), shifts
+    normal(0, 0.05), running means normal(0, 0.1) and variances uniform(0.5,
+    1.5), and every gain ``gamma`` 0.5: no zero-init gain or output conv
+    (AMSSRN's non-local ``W`` is a conv) stays zero."""
+    fan_in_init(model, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.05, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+        for name, p in model.named_parameters():
+            if name.rpartition(".")[2] == "gamma":
+                p.fill_(0.5)
+
+
+def _zoo_forward(name: str, batch: np.ndarray, smi: str, paths: dict) -> dict:
+    """One generator of the zoo at x4: a batch of four 54^2 requests on the
+    card in float32 (its exact launches), the first image against the CPU
+    plain path, the bf16 output against the float32 one as a PSNR, and the
+    request's latency in both types; SRAGAN also fused."""
+    model = create_generator(name, 4, seed=0)
+    zoo_init(model, seed=5)
+    model.eval()
+    state = copy.deepcopy(model.state_dict()) if name == "sragan" else None
+    t0 = time.perf_counter()
+    ref = forward_numpy(model, batch[:1], "cpu")
+    cpu_s = time.perf_counter() - t0
+    pred = Predictor(model, 4)  # the model moves to the card
+    reset_launches()
+    got = pred(batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != forward_launches(model):
+        fail(f"{name} forward launches {launches} differ from the module "
+             f"structure's {forward_launches(model)}")
+    err = float(np.abs(got[:1] - ref).max())
+    bound = SLICE_TOL * float(np.abs(ref).max())
+    if got.shape != (4, 216, 216, 3) or not np.isfinite(got).all():
+        fail(f"{name} output {got.shape}, finite={np.isfinite(got).all()}")
+    pred_bf16 = Predictor(model, 4, dtype=torch.bfloat16)
+    out_bf16 = pred_bf16(batch)
+    if not np.isfinite(out_bf16).all():
+        fail(f"{name} bf16 output is not finite")
+    row = {"max_abs_err": err, "bound": bound, "cpu_s": cpu_s,
+           "psnr_bf16_vs_f32_db": psnr(out_bf16, got),
+           "f32_ms": latency_ms(pred, batch, iters=5),
+           "bf16_ms": latency_ms(pred_bf16, batch, iters=5),
+           "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
+    print(f"zoo {name} x4, batch 4 x 54^2 -> 216^2 ({row['params_m']:.2f} M "
+          f"parameters): card f32 vs CPU plain path (1 image) max|d| "
+          f"{err:.3e} <= {bound:.3e}; bf16 vs f32 PSNR "
+          f"{row['psnr_bf16_vs_f32_db']:.2f} dB; {row['f32_ms']:.2f} ms f32, "
+          f"{row['bf16_ms']:.2f} ms bf16 a request; launches {launches}; CPU "
+          f"took {cpu_s:.1f} s [{smi}]")
+    if not err <= bound:
+        fail(f"{name}: the card's output disagrees with the CPU plain path")
+    if name == "sragan":
+        paths["sragan_serving"] = launches
+        fused = create_generator("sragan", 4, rab_tail="fused")
+        fused.load_state_dict(state)  # strict: the same tree
+        fused_pred = Predictor(fused, 4)
+        reset_launches()
+        fused_out = fused_pred(batch)
+        torch.cuda.synchronize()
+        fused_launches = read_launches()
+        if fused_launches != forward_launches(fused):
+            fail(f"sragan fused forward launches {fused_launches} differ "
+                 f"from {forward_launches(fused)}")
+        fused_err = float(np.abs(fused_out - got).max())
+        fused_bound = SLICE_TOL * float(np.abs(got).max())
+        row.update(fused_max_abs_err=fused_err,
+                   fused_f32_ms=latency_ms(fused_pred, batch, iters=5))
+        print(f"zoo sragan fused vs unfused on the card (4 x 54^2, f32): "
+              f"max|d| {fused_err:.3e} <= {fused_bound:.3e}; "
+              f"{row['fused_f32_ms']:.2f} ms a request; launches "
+              f"{fused_launches} [{smi}]")
+        if not fused_err <= fused_bound:
+            fail("sragan: the fused forward disagrees with the unfused one")
+        paths["sragan_serving_fused"] = fused_launches
+    return row
+
+
+def _zoo_gan_step(name: str, smi: str) -> dict:
+    """One bf16 step of ``name``'s x4 trainer at full width, batch 16, then
+    three timed ones: finite losses, ms per step."""
+    trainer = make_trainer("bf16", model=name)
+    batch = make_batch()
+    reset_launches()
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != step_launches(trainer):
+        fail(f"{name} step launches {launches} differ from "
+             f"{step_launches(trainer)}")
+    steps = 3
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = trainer.train_step(batch)
+    losses = {k: float(v) for k, v in metrics.items()}  # waits
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    mpix = 16 * 216 * 216 / 1e6
+    print(f"zoo {name} train step batch 16 x 54^2 -> 216^2 bf16 "
+          f"({trainer.cfg.gan.gan_type}): {ms:.2f} ms/step, "
+          f"{mpix / (ms / 1e3):.3f} MP/s; losses {losses} [{smi}]")
+    if not np.isfinite(list(losses.values())).all():
+        fail(f"{name} bf16 step losses are not finite: {losses}")
+    return {"ms_per_step": ms, "mp_per_s": mpix / (ms / 1e3),
+            "losses": losses}
+
+
+def _zoo_cli_train(name: str, save_dir: str, smi: str) -> dict:
+    """``cli train --model name`` for two steps at small widths."""
+    kwargs = ZOO_CLI_KWARGS[name]
+    argv = ["train", "--model", name, "--scale", "4", "--data", "synthetic",
+            "--steps", "2", "--no-final-eval", "--crop-size", "64",
+            "--batch-size", "4", "--model-kwargs", json.dumps(kwargs),
+            "--save-dir", save_dir]
+    _, launches = _cli_run(argv, smi)
+    structure = types.SimpleNamespace(
+        generator=create_generator(name, 4, **kwargs),
+        discriminator=(create_discriminator(name)
+                       if get_spec(name).adversarial else None),
+        cfg=config_for_model(name, 4))
+    want = {k: 2 * v for k, v in step_launches(structure).items()}
+    if launches != want:
+        fail(f"cli train --model {name} launches {launches} differ from "
+             f"{want}")
+    return launches
+
+
+def phase_model_zoo(smi: str) -> dict:
+    """The seven other generators of the zoo, and SRAGAN's x4 WGAN-GP step
+    as a second path through the kernels:
+
+    (a) each generator's x4 forward at its published width and depth
+    (:func:`_zoo_forward`), SRAGAN also fused;
+    (b) SRAGAN's float32 step at batch 2 (SRAGAN_CHECK: full width, 3
+    groups) against the CPU float64 step, each gradient tensor within the
+    fixed bar or twice the larger reading of two kernel-free float32 steps
+    there (the card's without kernels and the CPU's), the D's from the
+    card's own sr, unfused and fused (:func:`phase_train_correctness`);
+    (c) SRAGAN's full-depth step at batch 16, f32 and mixed precision,
+    unfused and fused (:func:`phase_train_timing`), its launches exact
+    and equal to SRAGAN_STEP_LAUNCHES;
+    (d) one bf16 step each of SRGAN, DRCAN and NDSRGAN at full width;
+    (e) ``cli train --model X`` for the seven at small widths."""
+    t_start = time.perf_counter()
+    paths = {}
+    batch = np.random.default_rng(3).random((4, 54, 54, 3),
+                                            dtype=np.float32)
+    forwards = {}
+    for name in ZOO:
+        forwards[name] = _zoo_forward(name, batch, smi, paths)
+        torch.cuda.empty_cache()
+
+    check = {"unfused": phase_train_correctness("unfused", None,
+                                                SRAGAN_CHECK)}
+    check["fused"] = phase_train_correctness(
+        "fused", check["unfused"].pop("card"), SRAGAN_CHECK)
+    check["fused"].pop("card")
+    for rab, c in check.items():
+        paths[f"sragan_grad_check_{rab}"] = c["launches"]
+    torch.cuda.empty_cache()
+
+    timing = phase_train_timing(smi, model="sragan")
+    for label in ("f32", "bf16"):
+        for rab in ("unfused", "fused"):
+            key = label if rab == "unfused" else f"fused_{label}"
+            launches = timing.pop(f"launches_{key}")
+            if launches != SRAGAN_STEP_LAUNCHES[rab]:
+                fail(f"sragan {key} step launches {launches}, not "
+                     f"{SRAGAN_STEP_LAUNCHES[rab]}")
+            paths[f"sragan_train_{key}"] = launches
+    torch.cuda.empty_cache()
+
+    gan_steps = {}
+    for name in ZOO_GAN_STEPS:
+        gan_steps[name] = _zoo_gan_step(name, smi)
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as save_dir:
+        for name in ZOO:
+            launches = _zoo_cli_train(name, os.path.join(save_dir, name), smi)
+            if name == "sragan":
+                paths["cli_train_sragan_fused"] = launches
+    print(f"cli train --model X --steps 2 at small widths returned 0 for "
+          f"{', '.join(ZOO)}")
+    never = [k for k in KERNELS if not any(
+        path[k] for key, path in paths.items() if key.startswith("sragan"))]
+    if never:
+        fail(f"kernels never launched on SRAGAN's paths: {never}")
+    seconds = time.perf_counter() - t_start
+    print(f"model zoo phase: {seconds:.1f} s")
+    return {"forwards": forwards, "sragan_train": timing,
+            "sragan_grad_check": {rab: c["grad_check"]
+                                  for rab, c in check.items()},
+            "gan_steps": gan_steps, "seconds": seconds,
+            "launches_by_path": paths}
+
+
 def main() -> int:
     # Full float32 in the plain versions too: cuDNN would run the float32
     # convs in TF32 (about three decimal digits) by default.
@@ -1458,12 +1923,14 @@ def main() -> int:
     timing = phase_train_timing(smi)
     cli_train = phase_cli_train(smi)
     eval_protocol = phase_eval_protocol(smi)
+    zoo = phase_model_zoo(smi)
     paths = {"serving": serving["launches"],
              "serving_fused": serving["fused_launches"],
              **{f"train_{k[len('launches_'):]}": v
                 for k, v in timing.items() if k.startswith("launches_")},
              "cli_train_fused": cli_train["launches"],
-             **eval_protocol.pop("launches_by_path")}
+             **eval_protocol.pop("launches_by_path"),
+             **zoo.pop("launches_by_path")}
     never = [name for name in KERNELS
              if not any(path[name] for path in paths.values())]
     idle = [name for name in KERNELS if not cli_train["launches"][name]]
@@ -1484,7 +1951,7 @@ def main() -> int:
                       "validation_batch": validation,
                       "cli_train": {k: v for k, v in cli_train.items()
                                     if k != "launches"},
-                      "eval_protocol": eval_protocol,
+                      "eval_protocol": eval_protocol, "model_zoo": zoo,
                       "strips": plans, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,9 @@
 
 Each command takes the flags of its ``python -m sradsgan_tpu.cli``
 counterpart, so a JAX command line parses unchanged, plus ``--device``
-(default ``cuda``; ``cpu`` runs the kernels' plain versions).
+(default ``cuda``; ``cpu`` runs the kernels' plain versions).  ``--model``
+is any model ``list-models`` prints (the JAX package's nine but HAT), with
+its recipe from ``models.config_for_model``.
 
 ``train`` archives a stale run directory (unless ``--resume``), builds the
 ``Trainer``, runs its epoch loop (``--steps`` stops after N steps instead),
@@ -29,8 +31,9 @@ and discriminator warm-started from the previous scale's ``ckpt_best.pt``
 
 ``validate``, ``validate-by-class`` and ``infer`` load the generator from
 ``--ckpt`` (a checkpoint ``train`` wrote, ``ckpt_epoch_N.pt`` or
-``ckpt_best.pt``: its ``"generator"`` state dict) or ``--weights`` (JAX
-generator params as ``.npz``, see ``tools/from_jax.py``), not both; with
+``ckpt_best.pt``: its ``"generator"`` state dict) or ``--weights`` (the
+JAX generator of ``--model`` as ``.npz``, see ``tools/from_jax.py``), not
+both; with
 neither it keeps its seeded random init, as the JAX CLI does without
 ``--ckpt``.  ``validate`` prints the whole test set's means as JSON,
 ``validate-by-class`` the per-class table, whose CSV it writes to
@@ -107,13 +110,15 @@ def _build_cfg(args):
 
 def _load_eval_model(args):
     """The generator of ``--model``/``--scale``/``--model-kwargs`` on the
-    CPU, holding ``--ckpt`` (the port's ``.pt``) or ``--weights`` (JAX
-    params, ``.npz``), else its seeded init."""
+    CPU, holding ``--ckpt`` (the port's ``.pt``) or ``--weights`` (the JAX
+    generator's params, or for SRGAN and SRAGAN its variables with
+    ``batch_stats``, as ``.npz``; ``tools/from_jax.py:generator_state_dict``
+    maps them by ``--model``), else its seeded init."""
     import torch
 
     from sradsgan_tpu_torch.models import create_generator
-    from sradsgan_tpu_torch.tools.from_jax import (load_npz,
-                                                   sradsgan_state_dict)
+    from sradsgan_tpu_torch.tools.from_jax import (generator_state_dict,
+                                                   load_npz)
 
     if args.ckpt and args.weights:
         raise SystemExit(f"{args.cmd}: pass --ckpt (a checkpoint of cli "
@@ -125,7 +130,8 @@ def _load_eval_model(args):
         state = torch.load(args.ckpt, map_location="cpu", weights_only=True)
         model.load_state_dict(state["generator"])
     elif args.weights:
-        model.load_state_dict(sradsgan_state_dict(load_npz(args.weights)))
+        model.load_state_dict(generator_state_dict(args.model,
+                                                   load_npz(args.weights)))
     return model
 
 
@@ -233,10 +239,12 @@ def cmd_infer(args) -> int:
 
 
 def cmd_list_models(_args) -> int:
-    from sradsgan_tpu_torch.models import available_models
+    from sradsgan_tpu_torch.models import available_models, get_spec
 
     for name in available_models():
-        print(name)
+        spec = get_spec(name)
+        kind = f"GAN({spec.gan_type})" if spec.adversarial else "pixel"
+        print(f"{name:<10} {kind}")
     return 0
 
 
@@ -248,7 +256,9 @@ def main(argv=None) -> int:
         p.add_argument("--ckpt", help="a checkpoint cli train wrote "
                        "(ckpt_epoch_N.pt, ckpt_best.pt)")
         p.add_argument("--weights",
-                       help="JAX generator params as .npz (tools/from_jax.py)")
+                       help="the JAX generator's params (with batch_stats "
+                            "where it has BatchNorm) as .npz "
+                            "(tools/from_jax.py)")
 
     p = sub.add_parser("train", help="train a model (then eval by class)")
     _add_common(p)

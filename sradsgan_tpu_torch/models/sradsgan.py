@@ -19,9 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sradsgan_tpu_torch.nn.attention import GlobalAttention, LocalAttention
-from sradsgan_tpu_torch.nn.blocks import ConvBlock, UpsampleHead
-
-KERNEL_INIT_STD = 0.02  # the JAX package's default_kernel_init
+from sradsgan_tpu_torch.nn.blocks import ConvBlock, UpsampleHead, materialize
 
 
 class MSB(nn.Module):
@@ -106,14 +104,7 @@ class SRADSGANGenerator(nn.Module):
                 ResGroup(f, n_blocks, rab_tail) for _ in range(n_groups))
             self.GAB_UP = GABUp(f, scale)
             self.conv3 = ConvBlock(f, num_channels)
-        self.to_empty(device="cpu")
-        gen = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith("weight"):
-                    p.normal_(0.0, KERNEL_INIT_STD, generator=gen)
-                else:  # biases and gamma
-                    p.zero_()
+        materialize(self, seed)
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

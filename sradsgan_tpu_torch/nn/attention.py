@@ -1,14 +1,17 @@
-"""Attention blocks of the flagship generator (NCHW).
+"""Attention blocks of the port's generators (NCHW).
 
 Counterpart of ``sradsgan_tpu/nn/attention.py``, for the compositions the
-SRADSGAN generator uses:
+ported models use:
 
 - :class:`ChannelGate`, the CLAM: sigmoid(MLP(avg) + MLP(max)) * x, the two
-  pools from the fused pool kernel, one MLP pass over both stacked;
+  pools from the fused pool kernel, one MLP pass over both stacked (DSSR's
+  "Avg" mode: the mean alone);
+- :class:`CALayer`, RCAN's squeeze-and-excite (DRCAN, AMSSRN);
 - :class:`SpatialGate`, the SLAM: the spatial-gate kernel;
-- :class:`LocalAttention`: CLAM then SLAM then a 1x1 fuse conv ('CA-SA'),
-  or, with ``rab_tail="fused"``, the whole tail with its residual add in
-  the fused RAB-tail op (same parameters, same ``state_dict``);
+- :class:`LocalAttention`: CLAM then SLAM then a 1x1 fuse conv ('CA-SA', the
+  mode of SRADSGAN's and SRAGAN's blocks), or, with ``rab_tail="fused"``,
+  the whole tail with its residual add in the fused RAB-tail op (same
+  parameters, same ``state_dict``);
 - :class:`SpatialSelfAttention`, the SGAM: the position-attention kernel;
 - :class:`ChannelSelfAttention`, the CGAM: a Gram matrix softmaxed over
   ``max(energy) - energy`` in float32;
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sradsgan_tpu_torch.nn.blocks import make_act
 from sradsgan_tpu_torch.ops import plain_dtype
 from sradsgan_tpu_torch.ops.pooling import avg_max_pool
 from sradsgan_tpu_torch.ops.rab_tail import fused_rab_tail
@@ -32,23 +36,53 @@ from sradsgan_tpu_torch.ops.sgam_flash import position_attention
 from sradsgan_tpu_torch.ops.spatial_gate import KERNEL_SIZE, spatial_gate
 
 
+POOL_MODES = ("Avg|Max", "Avg")
+
+
 class ChannelGate(nn.Module):
     """CLAM: a shared bias-free MLP (1x1 convs fc1, fc2, reduction 16) over
-    both pools."""
+    both pools, which come from the fused pool kernel; with
+    ``pool_mode="Avg"`` (DSSR) over the plain channel mean alone, as JAX
+    calls its pool kernel only for "Avg|Max"."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, pool_mode: str = "Avg|Max"):
         super().__init__()
+        if pool_mode not in POOL_MODES:
+            raise ValueError(f"pool_mode must be one of {POOL_MODES}, got "
+                             f"{pool_mode!r}")
+        self.pool_mode = pool_mode
         hidden = max(channels // 16, 1)
         self.fc1 = nn.Conv2d(channels, hidden, 1, bias=False)
         self.fc2 = nn.Conv2d(hidden, channels, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        avg, mx = avg_max_pool(x)
-        b = x.shape[0]
-        hidden = F.relu(F.linear(torch.cat([avg, mx]),
-                                 self.fc1.weight.flatten(1)))
+        if self.pool_mode == "Avg":
+            pooled = x.mean((2, 3))
+        else:
+            pooled = torch.cat(avg_max_pool(x))
+        hidden = F.relu(F.linear(pooled, self.fc1.weight.flatten(1)))
         o = F.linear(hidden, self.fc2.weight.flatten(1))
-        return torch.sigmoid(o[:b] + o[b:])[:, :, None, None] * x
+        if self.pool_mode != "Avg":
+            b = x.shape[0]
+            o = o[:b] + o[b:]
+        return torch.sigmoid(o)[:, :, None, None] * x
+
+
+class CALayer(nn.Module):
+    """RCAN's squeeze-and-excite: ``x * sigmoid(conv_du(mean_hw x))``, with
+    ``conv_du`` = 1x1 conv (bias) to C // reduction, the activation (ReLU;
+    AMSSRN's a PReLU), 1x1 conv back to C."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 activation: str = "relu"):
+        super().__init__()
+        hidden = max(channels // reduction, 1)
+        self.conv_du = nn.Sequential(nn.Conv2d(channels, hidden, 1),
+                                     make_act(activation),
+                                     nn.Conv2d(hidden, channels, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self.conv_du(x.mean((2, 3), keepdim=True))) * x
 
 
 class SpatialGate(nn.Module):

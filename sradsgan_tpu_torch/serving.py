@@ -27,10 +27,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def _compute_copy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """A copy of ``model`` in ``dtype``, except the SLAM 7x7 kernels, which
-    the gate reads in float32 (the JAX param stays float32 too)."""
+    the gate reads in float32, and the BatchNorms (SRGAN, SRAGAN), which
+    normalize in float32 (the JAX params and statistics stay float32
+    too)."""
     model = copy.deepcopy(model).to(dtype)
     for m in model.modules():
-        if isinstance(m, SpatialGate):
+        if isinstance(m, (SpatialGate, nn.BatchNorm2d)):
             m.float()
     return model
 

@@ -1,20 +1,24 @@
-"""Move SRADSGAN weights from the JAX package to the port.
+"""Move weights from the JAX package to the port.
 
-:func:`sradsgan_state_dict` is the inverse of
-``sradsgan_tpu/tools/import_reference.py:import_sradsgan``: it takes the JAX
-generator's param tree (nested dicts of arrays) and returns the port's
-``state_dict``.  :func:`discriminator_state_dict` does the same for the CBAM
-patch discriminator (params and BatchNorm ``batch_stats``; the inverse of
-``import_patch_discriminator``), and :func:`vgg19_state_dict` for the VGG19
-content features (the JAX param tree, or the ``.npz`` of
+One function per network, each the inverse of its reader in
+``sradsgan_tpu/tools/import_reference.py``: it takes the JAX param tree
+(nested dicts of arrays; for a network with BatchNorm the variables
+``{"params", "batch_stats"}``) and returns the port's ``state_dict``.
+:func:`generator_state_dict` dispatches on the model's name to
+``{sradsgan,edsr,srgan,drcan,dssr,sragan,ndsrgan,amssrn}_state_dict``;
+:func:`discriminator_state_dict` covers the patch discriminators (the
+inverse of ``import_patch_discriminator``), :func:`vgg19_state_dict` the
+VGG19 content features (the JAX param tree, or the ``.npz`` of
 ``SRADSGAN_TPU_VGG19_NPZ`` read with :func:`load_npz`), and
-:func:`lpips_state_dict` for LPIPS (its trunk, as the ``.npz`` of
+:func:`lpips_state_dict` LPIPS (its trunk, as the ``.npz`` of
 ``SRADSGAN_TPU_{ALEXNET,VGG16,SQUEEZENET}_NPZ`` holds it, and its heads).
-Conv kernels go HWIO -> OIHW, the CLAM's Dense kernels (in, out) ->
-bias-free 1x1 convs (out, in, 1, 1), the SLAM kernel (7, 7, 2, 1) -> (1, 2,
-7, 7) with plane 0 the channel mean and plane 1 the channel max, and each
-``gamma`` stays (1,).  The upsample conv is shared by
-every stage, so it maps once.
+Conv kernels go HWIO -> OIHW, Dense kernels (in, out) -> 1x1 convs (out,
+in, 1, 1) (the reference's attention MLPs are convs), the SLAM kernel (7,
+7, 2, 1) -> (1, 2, 7, 7) with plane 0 the channel mean and plane 1 the
+channel max, BatchNorm scale and bias -> weight and bias with the running
+mean and variance, a PReLU's alpha -> its weight, and each ``gamma`` stays
+(1,).  A conv (or BatchNorm) that the reference shares between upsample
+stages maps once.
 
 A machine that serves the port needs no JAX or orbax, so JAX weights reach
 it as ``.npz``: :func:`save_npz` on the JAX side writes the param tree with
@@ -51,53 +55,307 @@ def _count(tree: Tree, prefix: str) -> int:
     return sum(1 for k in tree if k.startswith(prefix))
 
 
+class _StateDict(dict):
+    """A port state dict under construction, written from JAX nodes."""
+
+    def conv(self, name: str, node: Tree, bias: bool = True) -> None:
+        self[f"{name}.weight"] = _oihw(node["kernel"])
+        if bias:
+            self[f"{name}.bias"] = _f32(node["bias"])
+
+    def dense(self, name: str, node: Tree, bias: bool = True) -> None:
+        """A Dense layer as the reference's 1x1 conv."""
+        self[f"{name}.weight"] = _dense_as_conv(node["kernel"])
+        if bias:
+            self[f"{name}.bias"] = _f32(node["bias"])
+
+    def batch_norm(self, name: str, params: Tree, stats: Tree) -> None:
+        self[f"{name}.weight"] = _f32(params["scale"])
+        self[f"{name}.bias"] = _f32(params["bias"])
+        self[f"{name}.running_mean"] = _f32(stats["mean"])
+        self[f"{name}.running_var"] = _f32(stats["var"])
+        self[f"{name}.num_batches_tracked"] = np.array(0, np.int64)
+
+    def local_attention(self, prefix: str, node: Tree) -> None:
+        """CLAM (bias-free MLP), SLAM kernel and 1x1 fuse conv."""
+        gate = node["ChannelGate_0"]
+        self.dense(f"{prefix}ca.fc1", gate["Dense_0"], bias=False)
+        self.dense(f"{prefix}ca.fc2", gate["Dense_1"], bias=False)
+        self.conv(f"{prefix}sa.conv1", node["SpatialGate_0"]["Conv_0"],
+                  bias=False)
+        self.conv(f"{prefix}conv", node["Conv_0"])
+
+    def global_attention(self, prefix: str, node: Tree) -> None:
+        """CGAM gain, SGAM q/k/v convs and gain, 1x1 fuse conv."""
+        self[f"{prefix}ca.gamma"] = _f32(
+            node["ChannelSelfAttention_0"]["gamma"])
+        sgam = node["SpatialSelfAttention_0"]
+        for i, name in enumerate(("query_conv", "key_conv", "value_conv")):
+            self.conv(f"{prefix}sa.{name}", sgam[f"Conv_{i}"])
+        self[f"{prefix}sa.gamma"] = _f32(sgam["gamma"])
+        self.conv(f"{prefix}conv", node["Conv_0"])
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        return _as_tensors(self)
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a, np.float32)
+
+
+def _params(variables: Tree) -> Tree:
+    return variables["params"] if "params" in variables else variables
+
+
+def _stats(variables: Tree, model: str) -> Tree:
+    if "batch_stats" not in variables:
+        raise ValueError(f"{model}'s generator has BatchNorm: pass its JAX "
+                         "variables {'params', 'batch_stats'}")
+    return variables["batch_stats"]
+
+
+def _stages(node: Tree) -> int:
+    return _count(node, "Conv_")
+
+
 def sradsgan_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
     """JAX ``SRADSGANGenerator`` params (or ``{"params": ...}``) -> the
     port's ``SRADSGANGenerator`` state dict, float32 on the CPU."""
-    if "params" in params:
-        params = params["params"]
-    sd: Dict[str, np.ndarray] = {}
-
-    def conv(name: str, node: Tree, bias: bool = True) -> None:
-        sd[f"{name}.weight"] = _oihw(node["kernel"])
-        if bias:
-            sd[f"{name}.bias"] = np.asarray(node["bias"], np.float32)
-
-    def local_attention(prefix: str, node: Tree) -> None:
-        gate = node["ChannelGate_0"]
-        sd[f"{prefix}.ca.fc1.weight"] = _dense_as_conv(
-            gate["Dense_0"]["kernel"])
-        sd[f"{prefix}.ca.fc2.weight"] = _dense_as_conv(
-            gate["Dense_1"]["kernel"])
-        conv(f"{prefix}.sa.conv1", node["SpatialGate_0"]["Conv_0"], bias=False)
-        conv(f"{prefix}.conv", node["Conv_0"])
-
-    conv("conv1.0", params["Conv_0"])
+    params = _params(params)
+    sd = _StateDict()
+    sd.conv("conv1.0", params["Conv_0"])
     msb = params["MSB_0"]
     for name, jax_name in (("conv1", "Conv_0"), ("conv2.0", "Conv_1"),
                            ("conv2.1", "Conv_2"), ("conv3", "Conv_3"),
                            ("conv", "Conv_4")):
-        conv(f"MSB.{name}", msb[jax_name])
+        sd.conv(f"MSB.{name}", msb[jax_name])
     for g in range(_count(params, "ResGroup_")):
         group = params[f"ResGroup_{g}"]
         for b in range(_count(group, "RAB_")):
             rab = group[f"RAB_{b}"]
             prefix = f"res_groups.{g}.RG.{b}"
-            conv(f"{prefix}.conv1", rab["Conv_0"])
-            conv(f"{prefix}.conv2", rab["Conv_1"])
-            local_attention(prefix, rab["LocalAttention_0"])
-        local_attention(f"res_groups.{g}", group["LocalAttention_0"])
-    ga = params["GlobalAttention_0"]
-    sd["GAB_UP.ca.gamma"] = np.asarray(ga["ChannelSelfAttention_0"]["gamma"],
-                                       np.float32)
-    sgam = ga["SpatialSelfAttention_0"]
-    for i, name in enumerate(("query_conv", "key_conv", "value_conv")):
-        conv(f"GAB_UP.sa.{name}", sgam[f"Conv_{i}"])
-    sd["GAB_UP.sa.gamma"] = np.asarray(sgam["gamma"], np.float32)
-    conv("GAB_UP.conv", ga["Conv_0"])
-    conv("GAB_UP.upsampling.0", params["UpsampleHead_0"]["Conv_0"])
-    conv("conv3.0", params["ConvBlock_0"]["Conv_0"])
-    return _as_tensors(sd)
+            sd.conv(f"{prefix}.conv1", rab["Conv_0"])
+            sd.conv(f"{prefix}.conv2", rab["Conv_1"])
+            sd.local_attention(f"{prefix}.", rab["LocalAttention_0"])
+        sd.local_attention(f"res_groups.{g}.", group["LocalAttention_0"])
+    sd.global_attention("GAB_UP.", params["GlobalAttention_0"])
+    sd.conv("GAB_UP.upsampling.0", params["UpsampleHead_0"]["Conv_0"])
+    sd.conv("conv3.0", params["ConvBlock_0"]["Conv_0"])
+    return sd.tensors()
+
+
+def edsr_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``EDSR`` params -> the port's ``EDSR`` state dict."""
+    params = _params(params)
+    sd = _StateDict()
+    sd.conv("input_conv.conv", params["ConvBlock_0"]["Conv_0"])
+    for i in range(_count(params, "ResBlock_")):
+        block = params[f"ResBlock_{i}"]
+        for j in (0, 1):
+            sd.conv(f"residual_layers.{i}.conv{j + 1}",
+                    block[f"ConvBlock_{j}"]["Conv_0"])
+    sd.conv("mid_conv.conv", params["ConvBlock_1"]["Conv_0"])
+    sd.conv("upsampling.0", params["UpsampleHead_0"]["Conv_0"])
+    sd.conv("output_conv.conv", params["ConvBlock_2"]["Conv_0"])
+    return sd.tensors()
+
+
+def srgan_state_dict(variables: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``SRGANGenerator`` variables (params and ``batch_stats``) -> the
+    port's ``SRGANGenerator`` state dict, running statistics included."""
+    params, stats = variables["params"], _stats(variables, "srgan")
+    sd = _StateDict()
+
+    def conv_bn(name: str, conv_name: str, bn_name: str, jax_name: str):
+        sd.conv(f"{name}.{conv_name}", params[jax_name]["Conv_0"])
+        sd.batch_norm(f"{name}.{bn_name}", params[jax_name]["BatchNorm_0"],
+                      stats[jax_name]["BatchNorm_0"])
+
+    sd.conv("conv1.0", params["ConvBlock_0"]["Conv_0"])
+    n = (_count(params, "ConvBlock_") - 2) // 2
+    for i in range(n):
+        conv_bn(f"res_blocks.{i}.conv_block", "0", "1",
+                f"ConvBlock_{1 + 2 * i}")
+        conv_bn(f"res_blocks.{i}.conv_block", "3", "4",
+                f"ConvBlock_{2 + 2 * i}")
+    conv_bn("conv2", "0", "1", f"ConvBlock_{1 + 2 * n}")
+    sd.conv("upsampling.0", params["Conv_0"])
+    sd.batch_norm("upsampling.1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    sd.conv("conv3.0", params["Conv_1"])
+    return sd.tensors()
+
+
+def drcan_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``DRCAN`` params -> the port's ``DRCAN`` state dict."""
+    params = _params(params)
+    sd = _StateDict()
+    n_groups = _count(params, "ConvBlock_") - 3
+    n_blocks = _count(params, "RCAB_") // n_groups
+    sd.conv("head.0", params["ConvBlock_0"]["Conv_0"])
+    for g in range(n_groups):
+        for b in range(n_blocks):
+            rcab = params[f"RCAB_{g * n_blocks + b}"]
+            prefix = f"body.{g}.body.{b}.body"
+            sd.conv(f"{prefix}.0", rcab["ConvBlock_0"]["Conv_0"])
+            sd.conv(f"{prefix}.2", rcab["ConvBlock_1"]["Conv_0"])
+            for i, idx in enumerate((0, 2)):
+                sd.dense(f"{prefix}.3.conv_du.{idx}",
+                         rcab["CALayer_0"][f"Dense_{i}"])
+        sd.conv(f"body.{g}.body.{n_blocks}",
+                params[f"ConvBlock_{1 + g}"]["Conv_0"])
+    sd.conv(f"body.{n_groups}", params[f"ConvBlock_{1 + n_groups}"]["Conv_0"])
+    up = params["UpsampleHead_0"]
+    for n in range(_stages(up)):
+        sd.conv(f"tail.0.{2 * n}", up[f"Conv_{n}"])
+    sd.conv("tail.1", params[f"ConvBlock_{2 + n_groups}"]["Conv_0"])
+    return sd.tensors()
+
+
+def dssr_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``DSSR`` params -> the port's ``DSSR`` state dict."""
+    params = _params(params)
+    sd = _StateDict()
+    sd.conv("conv1.0", params["ConvBlock_0"]["Conv_0"])
+    for g in range(_count(params, "DSSRGroup_")):
+        group = params[f"DSSRGroup_{g}"]
+        for b in range(_count(group, "WAB_")):
+            wab = group[f"WAB_{b}"]
+            prefix = f"res_groups.{g}.RG.{b}"
+            sd.conv(f"{prefix}.conv1", wab["ConvBlock_0"]["Conv_0"])
+            sd.conv(f"{prefix}.conv2", wab["ConvBlock_1"]["Conv_0"])
+            sd.dense(f"{prefix}.ca.fc1", wab["ChannelGate_0"]["Dense_0"],
+                     bias=False)
+            sd.dense(f"{prefix}.ca.fc2", wab["ChannelGate_0"]["Dense_1"],
+                     bias=False)
+        sd.conv(f"res_groups.{g}.conv", group["ConvBlock_0"]["Conv_0"])
+    sd.conv("UP.upsampling.0", params["UpsampleHead_0"]["Conv_0"])
+    sd.conv("conv3.0", params["ConvBlock_1"]["Conv_0"])
+    return sd.tensors()
+
+
+def sragan_state_dict(variables: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``SRAGANGenerator`` variables (params and ``batch_stats``) ->
+    the port's ``SRAGANGenerator`` state dict."""
+    params, stats = variables["params"], _stats(variables, "sragan")
+    sd = _StateDict()
+    sd.conv("conv1.0", params["Conv_0"])
+    for g in range(_count(params, "SRAGANGroup_")):
+        group = params[f"SRAGANGroup_{g}"]
+        n = _count(group, "BasicAttentionBlock_")
+        for b in range(n):
+            block = group[f"BasicAttentionBlock_{b}"]
+            prefix = (f"res_blocks.{g}.blocks.{b}" if b < n - 1
+                      else f"res_blocks.{g}.last_conv")
+            sd.conv(f"{prefix}.conv1.conv", block["ConvBlock_0"]["Conv_0"])
+            sd.conv(f"{prefix}.conv2.conv", block["ConvBlock_1"]["Conv_0"])
+            sd.local_attention(f"{prefix}.", block["LocalAttention_0"])
+        sd.local_attention(f"res_blocks.{g}.", group["LocalAttention_0"])
+    sd.conv("conv2.0", params["Conv_1"])
+    sd.batch_norm("conv2.1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    sd.global_attention("", params["GlobalAttention_0"])
+    sd.conv("upsampling.0", params["Conv_2"])
+    sd.batch_norm("upsampling.1", params["BatchNorm_1"], stats["BatchNorm_1"])
+    sd.conv("conv3.0", params["Conv_3"])
+    return sd.tensors()
+
+
+def ndsrgan_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``NDSRGANGenerator`` params -> the port's state dict."""
+    params = _params(params)
+    sd = _StateDict()
+    sd.conv("conv1.0", params["ConvBlock_0"]["Conv_0"])
+    for k in range(_count(params, "DCRDB_")):
+        block = params[f"DCRDB_{k}"]
+        prefix = f"DCRDB_block.DRRDB{k + 1}"
+        for r in range(3):
+            dense = block[f"DenseBlock_{r}"]
+            for j in range(4):
+                sd.conv(f"{prefix}.RDB{r + 1}.CL_blocks.{j}.0",
+                        dense[f"ConvBlock_{j}"]["Conv_0"])
+            sd.conv(f"{prefix}.RDB{r + 1}.conv",
+                    dense["ConvBlock_4"]["Conv_0"])
+        sd.conv(f"{prefix}.conv", block["ConvBlock_0"]["Conv_0"])
+    sd.conv("conv2", params["ConvBlock_1"]["Conv_0"])
+    sd.conv("upsampling.1", params["NearestConvUpsample_0"]["Conv_0"])
+    sd.conv("conv3.0", params["ConvBlock_2"]["Conv_0"])
+    sd.conv("conv3.2", params["ConvBlock_3"]["Conv_0"])
+    return sd.tensors()
+
+
+def amssrn_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``AMSSRN`` params -> the port's ``AMSSRN`` state dict.
+
+    The reference's ASPP has one PReLU for its three branches, JAX three
+    slopes; they are equal in weights the reference trained (its importer
+    writes the one slope to all three), and unequal ones raise."""
+    params = _params(params)
+    sd = _StateDict()
+
+    def prelu(name: str, node: Tree) -> None:
+        sd[f"{name}.weight"] = _f32(node["alpha"]).reshape(1)
+
+    def rb(prefix: str, node: Tree) -> None:
+        sd.conv(f"{prefix}.conv3X3", node["ConvBlock_0"]["Conv_0"])
+        sd.conv(f"{prefix}.rb.0", node["ConvBlock_1"]["Conv_0"])
+        prelu(f"{prefix}.rb.1", node["PReLU_0"])
+        sd.conv(f"{prefix}.rb.2", node["ConvBlock_2"]["Conv_0"])
+
+    sd.conv("head.0", params["ConvBlock_0"]["Conv_0"])
+    sd["gamma"] = _f32(params["gamma"])
+    for q in (0, 1):
+        nl = params[f"QuadrantNonLocal_{q}"]["NonLocalBlock_0"]
+        for i, name in enumerate(("g", "theta", "phi", "W")):
+            sd.conv(f"non_local_{q + 1}.non_local.{name}", nl[f"Conv_{i}"])
+    n_db = _count(params, "DB_")
+    for i in range(n_db + _count(params, "DBASPP_")):
+        node = params[f"DB_{i}" if i < n_db else f"DBASPP_{i - n_db}"]
+        prefix = f"body.{i}"
+        for c in range(4):
+            rb(f"{prefix}.c{c + 1}", node[f"RB_{c}"])
+        if i >= n_db:
+            slopes = [_f32(node[f"PReLU_{d}"]["alpha"]) for d in range(3)]
+            if not all(np.array_equal(slopes[0], a) for a in slopes[1:]):
+                raise ValueError(f"DBASPP_{i - n_db}: the three ASPP PReLU "
+                                 "slopes differ; the port shares one")
+            for d in range(3):
+                sd.conv(f"{prefix}.aspp.d{d + 1}", node[f"Conv_{d}"])
+            prelu(f"{prefix}.aspp.act", node["PReLU_0"])
+        ca = node["AmssrnCALayer_0"]
+        sd.dense(f"{prefix}.ca.conv_du.0", ca["Dense_0"])
+        prelu(f"{prefix}.ca.conv_du.1", ca["PReLU_0"])
+        sd.dense(f"{prefix}.ca.conv_du.2", ca["Dense_1"])
+        sd.conv(f"{prefix}.c5", node["Conv_3" if i >= n_db else "Conv_0"])
+    n_taps = _count(params, "Conv_") - 1
+    for k in range(n_taps):
+        sd.conv(f"fpn_fusion.fusion.{k}", params[f"Conv_{k}"])
+    sd.conv("feature_bank", params[f"Conv_{n_taps}"])
+    up = params["UpsampleHead_0"]
+    for n in range(_stages(up)):
+        sd.conv(f"tail.{2 * n}", up[f"Conv_{n}"])
+    sd.conv("reconstruction", params["ConvBlock_1"]["Conv_0"])
+    return sd.tensors()
+
+
+GENERATOR_BRIDGES = {
+    "sradsgan": sradsgan_state_dict, "edsr": edsr_state_dict,
+    "srgan": srgan_state_dict, "drcan": drcan_state_dict,
+    "dssr": dssr_state_dict, "sragan": sragan_state_dict,
+    "ndsrgan": ndsrgan_state_dict, "amssrn": amssrn_state_dict,
+}
+
+
+def generator_state_dict(model: str,
+                         variables: Tree) -> Dict[str, torch.Tensor]:
+    """The JAX generator of ``model`` (its params, or its variables
+    ``{"params", "batch_stats"}``, which SRGAN and SRAGAN need) -> the
+    port's state dict of the same generator."""
+    try:
+        bridge = GENERATOR_BRIDGES[model.lower()]
+    except KeyError:
+        raise NotImplementedError(
+            f"no weight bridge for model {model!r}; the port has "
+            f"{sorted(GENERATOR_BRIDGES)}") from None
+    return bridge(variables)
 
 
 def _as_tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -107,48 +365,34 @@ def _as_tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def discriminator_state_dict(
         variables: Tree,
-        blocks: Sequence[Tuple[int, int, bool]] = DEFAULT_BLOCKS
-) -> Dict[str, torch.Tensor]:
+        blocks: Sequence[Tuple[int, int, bool]] = DEFAULT_BLOCKS,
+        use_attention: bool = True) -> Dict[str, torch.Tensor]:
     """JAX ``PatchDiscriminator`` variables (``{"params", "batch_stats"}``)
-    -> the port's ``PatchDiscriminator`` state dict: convs OIHW, BatchNorm
-    scale and bias as weight and bias with their running mean and variance,
-    the CBAM's Dense kernels as 1x1 convs and its gate kernel as (1, 2, 7,
-    7).  The walk follows the port's flat ``model`` Sequential."""
+    -> the port's ``PatchDiscriminator`` state dict: convs OIHW (any kernel
+    size), BatchNorm scale and bias as weight and bias with their running
+    mean and variance, the CBAM's Dense kernels as 1x1 convs and its gate
+    kernel as (1, 2, 7, 7).  The walk follows the port's flat ``model``
+    Sequential."""
     params, stats = variables["params"], variables["batch_stats"]
-    sd: Dict[str, np.ndarray] = {}
-    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    sd = _StateDict()
     seq = conv_i = bn_i = 0
-
-    def conv(node: Tree) -> None:
-        nonlocal seq
-        sd[f"model.{seq}.weight"] = _oihw(node["kernel"])
-        sd[f"model.{seq}.bias"] = f32(node["bias"])
-        seq += 1
-
     for i, (_, _, normalize) in enumerate(blocks, 1):
-        conv(params[f"Conv_{conv_i}"])
-        conv_i += 1
+        sd.conv(f"model.{seq}", params[f"Conv_{conv_i}"])
+        seq, conv_i = seq + 1, conv_i + 1
         if normalize:
             name = f"BatchNorm_{bn_i}"
-            sd[f"model.{seq}.weight"] = f32(params[name]["scale"])
-            sd[f"model.{seq}.bias"] = f32(params[name]["bias"])
-            sd[f"model.{seq}.running_mean"] = f32(stats[name]["mean"])
-            sd[f"model.{seq}.running_var"] = f32(stats[name]["var"])
-            sd[f"model.{seq}.num_batches_tracked"] = np.array(0, np.int64)
-            seq += 1
-            bn_i += 1
+            sd.batch_norm(f"model.{seq}", params[name], stats[name])
+            seq, bn_i = seq + 1, bn_i + 1
         seq += 1  # LeakyReLU
-        if i == ATTENTION_AFTER:
+        if use_attention and i == ATTENTION_AFTER:
             gate = params["ChannelGate_0"]
-            sd[f"model.{seq}.fc1.weight"] = _dense_as_conv(
-                gate["Dense_0"]["kernel"])
-            sd[f"model.{seq}.fc2.weight"] = _dense_as_conv(
-                gate["Dense_1"]["kernel"])
-            sd[f"model.{seq + 1}.conv1.weight"] = _oihw(
-                params["SpatialGate_0"]["Conv_0"]["kernel"])
+            sd.dense(f"model.{seq}.fc1", gate["Dense_0"], bias=False)
+            sd.dense(f"model.{seq}.fc2", gate["Dense_1"], bias=False)
+            sd.conv(f"model.{seq + 1}.conv1",
+                    params["SpatialGate_0"]["Conv_0"], bias=False)
             seq += 2
-    conv(params[f"Conv_{conv_i}"])
-    return _as_tensors(sd)
+    sd.conv(f"model.{seq}", params[f"Conv_{conv_i}"])
+    return sd.tensors()
 
 
 def vgg19_state_dict(params: Tree) -> Dict[str, torch.Tensor]:

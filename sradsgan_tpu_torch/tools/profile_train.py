@@ -1,11 +1,12 @@
 """Where the time of one train step goes on the card.
 
     python -m sradsgan_tpu_torch.tools.profile_train [--precision bf16]
-        [--rab-tail fused]
+        [--rab-tail fused] [--model sragan]
 
 Builds the full-width SRADSGAN x4 WGAN-GP trainer (12 groups x 3 RABs x 64
 filters, the CBAM patch discriminator, the VGG19 content term; seeded random
-weights, both attention gains 0.5), takes three warm-up steps at batch 16 of
+weights, both attention gains 0.5), or that of another GAN model of the
+registry with ``--model``, takes three warm-up steps at batch 16 of
 54^2 -> 216^2, then profiles ``--steps`` more under ``torch.profiler`` and
 prints the wall time per step, the device's busy share of that window (the
 sum of kernel times over the wall time; one stream, so kernels do not
@@ -17,6 +18,7 @@ of ``cfg.bf16`` and ``cfg.d_bf16``.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import subprocess
 import time
 
@@ -24,23 +26,31 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from sradsgan_tpu_torch.models import config_for_model
+from sradsgan_tpu_torch.models import config_for_model, get_spec
 from sradsgan_tpu_torch.train.trainer import Trainer
 
 BATCH, LR_SIZE, SCALE = 16, 54, 4
 
 
 def make_trainer(precision: str, device: str = "cuda",
-                 rab_tail: str = "unfused") -> Trainer:
-    """The flagship trainer, seed 0, attention gains 0.5.  Weights depend on
-    the seed alone, not on the device or the RAB tail's formulation."""
+                 rab_tail: str = "unfused", model: str = "sradsgan",
+                 **model_kwargs) -> Trainer:
+    """The x4 trainer of ``model`` (the flagship by default), seed 0, its
+    global attention gains 0.5; ``rab_tail`` reaches the generators that
+    take it (those with CA-SA tails: SRADSGAN, SRAGAN), ``model_kwargs``
+    the generator.
+    Weights depend on the seed alone, not on the device or the RAB tail's
+    formulation."""
     bf16 = precision == "bf16"
-    cfg = config_for_model("sradsgan", SCALE, bf16=bf16, d_bf16=bf16,
-                           model_kwargs={"rab_tail": rab_tail})
+    if "rab_tail" in inspect.signature(get_spec(model).generator).parameters:
+        model_kwargs["rab_tail"] = rab_tail
+    cfg = config_for_model(model, SCALE, bf16=bf16, d_bf16=bf16,
+                           model_kwargs=model_kwargs)
     trainer = Trainer(cfg, device=device)
     with torch.no_grad():
-        trainer.generator.GAB_UP.ca.gamma.fill_(0.5)
-        trainer.generator.GAB_UP.sa.gamma.fill_(0.5)
+        for name, p in trainer.generator.named_parameters():
+            if name.endswith(("ca.gamma", "sa.gamma")):
+                p.fill_(0.5)
     return trainer
 
 
@@ -57,13 +67,16 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--rab-tail", choices=["unfused", "fused"],
                    default="unfused")
+    p.add_argument("--model", default="sradsgan",
+                   help="a GAN model of the registry (sradsgan, sragan, ...)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    trainer = make_trainer(args.precision, rab_tail=args.rab_tail)
+    trainer = make_trainer(args.precision, rab_tail=args.rab_tail,
+                           model=args.model)
     batch = make_batch()
     for _ in range(3):
         trainer.train_step(batch)
@@ -86,8 +99,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    print(f"train step {BATCH} x {LR_SIZE}^2 -> {LR_SIZE * SCALE}^2 "
-          f"{args.precision}, RAB tail {args.rab_tail}: {wall_ms / n:.3f} "
+    print(f"{args.model} train step {BATCH} x {LR_SIZE}^2 -> "
+          f"{LR_SIZE * SCALE}^2 {args.precision}, RAB tail {args.rab_tail}: "
+          f"{wall_ms / n:.3f} "
           f"ms/step wall, device busy {busy_ms / n:.3f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}% of "
           f"the window) [{card}]")

@@ -1,8 +1,12 @@
-"""The generator + discriminator WGAN-GP trainer in PyTorch: the train step,
-the validation sweep and the epoch loop with plateau backtracking.
+"""The trainer of the model zoo in PyTorch: the train step, the validation
+sweep and the epoch loop with plateau backtracking.
 
 Counterpart of ``sradsgan_tpu/train/trainer.py:Trainer``, for the models of
-the port's registry (``models/__init__.py``).  One step:
+the port's registry (``models/__init__.py``), whose recipe picks the
+losses: the pixel-only models (EDSR, DSSR, AMSSRN) have no discriminator
+and no VGG, their step is the G step's pixel term alone; lsgan (SRGAN,
+NDSRGAN) has neither penalty nor clip; WGAN-GP (DRCAN, SRAGAN, SRADSGAN)
+both.  One step:
 
 - **G step.** ``sr = G(lr)``; loss = ``w_pixel * pixel(sr, hr)`` + ``w_content
   * pixel(VGG(sr), VGG(hr))`` (the HR features carry no gradient) +
@@ -13,11 +17,18 @@ the port's registry (``models/__init__.py``).  One step:
   carries ``lambda``; one Adam step on D, then every D parameter clipped to
   ``+-clip_value``.
 
-The discriminator runs the reference's four train-mode forwards (sr in the
-G step, then hr, sr.detach() and the interpolates), each updating the
-BatchNorm running statistics.  The JAX step shares the first two and
-replays the second BatchNorm update in closed form (``trainer.py:313-322``),
-so the running statistics agree to a tolerance, not bit for bit.
+The discriminator runs the reference's train-mode forwards (sr in the G
+step, then hr, sr.detach() and, for WGAN-GP, the interpolates), each
+updating the BatchNorm running statistics.  The JAX WGAN-GP step shares the
+first two and replays the second BatchNorm update in closed form
+(``trainer.py:313-322``), so the running statistics agree to a tolerance,
+not bit for bit; its lsgan step keeps the D's statistics of hr and sr only
+(``trainer.py:259-266``), one update a step fewer than here.  A generator
+with BatchNorm (SRGAN, SRAGAN) is in train mode in the step (its running
+statistics update once a forward, the shared upsample BatchNorm once a
+stage) and in eval mode in the sweep; the plateau reload restores its
+whole ``state_dict``, running statistics included, as the reference does
+(the JAX trainer reloads its params only).
 
 Precision: float32 (``cfg.bf16`` off, the parity mode), or the JAX
 default's mixed precision: bf16 generator and VGG convs under autocast

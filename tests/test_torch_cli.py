@@ -10,7 +10,9 @@ refused.  ``validate`` and ``validate-by-class`` print what the evaluation
 functions return (their parity with JAX is ``test_torch_eval.py``), the
 latter also the CSV; ``train`` prints the by-class table after training,
 with LPIPS where ``--lpips`` asks; ``chain-train`` hands each scale the
-previous one's checkpoint.
+previous one's checkpoint.  The other models of the zoo: ``list-models``
+lists the eight, ``infer --weights`` maps a JAX SRAGAN's variables through
+the bridges' dispatcher, ``validate-by-class`` runs EDSR.
 """
 
 import json
@@ -36,7 +38,7 @@ from sradsgan_tpu_torch.evaluation.validate import (  # noqa: E402
 from sradsgan_tpu_torch.losses.lpips import lpips_fn  # noqa: E402
 from sradsgan_tpu_torch.serving import Predictor  # noqa: E402
 from sradsgan_tpu_torch.tools.from_jax import (  # noqa: E402
-    save_npz, sradsgan_state_dict)
+    generator_state_dict, save_npz, sradsgan_state_dict)
 from sradsgan_tpu_torch.train import trainer as trainer_module  # noqa: E402
 from test_torch_sradsgan import random_params  # noqa: E402
 
@@ -263,3 +265,66 @@ def test_chain_train_hands_each_scale_the_previous_checkpoint(
     assert len(same) == len(x3) - 2  # all but the upsample conv
     for key in same:
         assert torch.equal(x3[key], x2[key]), key
+
+
+def test_list_models_lists_the_eight_ported_models(capsys):
+    assert cli.main(["list-models"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    # tests register tiny twins named "*_port" (test_torch_trainer.py keeps
+    # its own for the worker's life)
+    assert [line.split() for line in lines
+            if not line.split()[0].endswith("_port")] == [
+        ["amssrn", "pixel"], ["drcan", "GAN(wgan-gp)"], ["dssr", "pixel"],
+        ["edsr", "pixel"], ["ndsrgan", "GAN(lsgan)"],
+        ["sradsgan", "GAN(wgan-gp)"], ["sragan", "GAN(wgan-gp)"],
+        ["srgan", "GAN(lsgan)"]]
+
+
+def test_infer_weights_of_a_jax_sragan_go_through_the_dispatcher(tmp_path,
+                                                                 capsys):
+    """``--model sragan --weights``: JAX variables with their BatchNorm
+    statistics, as ``.npz``, mapped by ``generator_state_dict``; the SR
+    png is the truncated uint8 of JAX ``Evaluator.super_resolve``'s SR
+    within 1e-4 of max|ref| (equal where no value sits at a uint8 step)."""
+    from test_torch_zoo import jax_variables
+
+    gen, variables = jax_variables("sragan", SCALE)
+    image, lr01 = _image(tmp_path, seed=2)
+    want = JaxEvaluator(gen, variables, SCALE).super_resolve(lr01[None])[0]
+    npz = tmp_path / "sragan.npz"
+    save_npz(str(npz), variables)
+    tiny = {"base_filters": 16, "n_groups": 2, "n_blocks": 2}
+    assert cli.main(["infer", "--device", "cpu", "--model", "sragan",
+                     "--scale", str(SCALE), "--model-kwargs",
+                     json.dumps(tiny), "--image", image, "--weights",
+                     str(npz), "--out-dir", str(tmp_path / "out")]) == 0
+    got = _sr_png(capsys.readouterr().out.strip().splitlines()[-1])
+    model = models.create_generator("sragan", SCALE, **tiny)
+    model.load_state_dict(generator_state_dict("sragan", variables))
+    sr = Evaluator(model, SCALE, device="cpu").super_resolve(lr01[None])[0]
+    assert float(np.abs(sr - want).max()) <= 1e-4 * float(
+        np.abs(want).max())
+    np.testing.assert_array_equal(got, _truncated(sr))
+    near = np.abs(np.clip(want, 0, 1) * 255 - np.round(
+        np.clip(want, 0, 1) * 255)) < 1e-2
+    np.testing.assert_array_equal(got[~near], _truncated(want)[~near])
+
+
+def test_validate_by_class_runs_a_pixel_model(tmp_path, capsys):
+    """``validate-by-class --model edsr``: EDSR's seeded generator, its
+    table and its CSV under ``EDSR_x2``, the bytes of the direct call's."""
+    tiny = {"base_filters": 8, "num_residuals": 1}
+    run = tmp_path / "run"
+    assert cli.main(["validate-by-class", "--device", "cpu", "--data",
+                     "synthetic", "--scale", str(SCALE), "--crop-size", "16",
+                     "--model", "edsr", "--model-kwargs", json.dumps(tiny),
+                     "--save-dir", str(run)]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [line.split()[0] for line in lines[1:3]] == ["all", "Total"]
+    csv = run / "EDSR_x2" / "by_class_x2.csv"
+    cfg = DataConfig(synthetic=True, crop_size=16, test_crop_size=16)
+    table = mfe_new_validate_by_class(
+        models.create_generator("edsr", SCALE, **tiny), cfg, SCALE,
+        device="cpu")
+    save_by_class_csv(table, str(tmp_path / "direct.csv"))
+    assert csv.read_bytes() == (tmp_path / "direct.csv").read_bytes()

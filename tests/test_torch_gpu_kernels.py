@@ -16,7 +16,9 @@ channels, batches from 1 to 37, a 216x216 image, planes and views off the 16-byt
 grid, tied maxima, saturated gates, twice over for equal bits, and against
 the strip-wise plain helpers; the gate forward also at strips of 1 to 5
 rows, beyond one wave of blocks, 20 times over for equal bits, inside a
-captured CUDA graph and on two streams at once.  Marked ``gpu``; they skip
+captured CUDA graph and on two streams at once.  SRAGAN, the second model
+on the kernels' path: its forward against the plain path and its forward's
+and train step's launches, unfused and fused.  Marked ``gpu``; they skip
 where no CUDA device is present.  This file imports neither JAX nor the
 JAX package, so on a machine without them run it as
 
@@ -684,3 +686,87 @@ def test_dispatch_launches_the_kernel_on_cuda(cuda):
     before = pooling.avg_max_pool_cuda.launches
     pooling.avg_max_pool(x)
     assert pooling.avg_max_pool_cuda.launches == before + 1
+
+
+def _launches():
+    return {"avg_max_pool": pooling.avg_max_pool_cuda,
+           "spatial_gate": spatial_gate.spatial_gate_cuda,
+           "position_attention": sgam_flash.position_attention_cuda,
+           "spatial_gate_bwd": spatial_gate.spatial_gate_bwd_cuda,
+           "position_attention_bwd": sgam_flash.position_attention_bwd_cuda,
+           "rab_tail": rab_tail.rab_tail_cuda}
+
+
+def _sragan(rab, **kw):
+    """A SRAGAN generator of 2 groups x 2 blocks at 64 filters (the
+    attention kernel's (8, 64) width), conv weights at fan-in scale and
+    both gains 0.5, so that every tail and the PAM matter."""
+    from sradsgan_tpu_torch.models import create_generator
+
+    model = create_generator("sragan", 4, n_groups=2, n_blocks=2,
+                             rab_tail=rab, **kw)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("gamma"):
+                p.fill_(0.5)
+            elif p.dim() == 4:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5
+                        / p[0].numel() ** 0.5)
+    return model.eval()
+
+
+@pytest.mark.parametrize("rab", ["unfused", "fused"])
+def test_sragan_forward_on_cuda(cuda, rab):
+    """The card's SRAGAN forward against the plain path on the CPU, and
+    its launches: per tail (two blocks and the group's, twice) a pool and
+    a gate, or one fused tail; the PAM once."""
+    model = _sragan(rab)
+    x = _randn((2, 3, 20, 20), torch.float32, "cpu", seed=4).sigmoid()
+    with torch.no_grad():
+        want = model(x)
+        model.to(cuda)
+        for fn in _launches().values():
+            fn.launches = 0
+        got = model(x.to(cuda)).cpu()
+    counts = {k: fn.launches for k, fn in _launches().items()}
+    tails = 2 * (2 + 1)
+    fused = rab == "fused"
+    assert counts == {"avg_max_pool": 0 if fused else tails,
+                      "spatial_gate": 0 if fused else tails,
+                      "position_attention": 1, "spatial_gate_bwd": 0,
+                      "position_attention_bwd": 0,
+                      "rab_tail": tails if fused else 0}
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("rab", ["unfused", "fused"])
+def test_sragan_train_step_launches_on_cuda(cuda, rab):
+    """One float32 WGAN-GP step of a SRAGAN trainer (1 group x 2 blocks, the
+    CBAM D): the launches the module structure gives (chip_smoke.py's
+    step_launches), finite losses."""
+    import numpy as np
+
+    from sradsgan_tpu_torch.models import config_for_model
+    from sradsgan_tpu_torch.train.trainer import Trainer
+
+    cfg = config_for_model("sragan", 4, bf16=False, model_kwargs=dict(
+        n_groups=1, n_blocks=2, rab_tail=rab))
+    trainer = Trainer(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    batch = {"lr": rng.random((2, 8, 8, 3), dtype=np.float32),
+             "hr": rng.random((2, 32, 32, 3), dtype=np.float32)}
+    for fn in _launches().values():
+        fn.launches = 0
+    losses = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in _launches().items()}
+    tails, fused = 1 * (2 + 1), rab == "fused"
+    assert counts == {"avg_max_pool": (0 if fused else tails) + 4,
+                      "spatial_gate": (0 if fused else tails) + 4,
+                      "position_attention": 1,
+                      "spatial_gate_bwd": tails + 5,
+                      "position_attention_bwd": 1,
+                      "rab_tail": tails if fused else 0}
+    assert all(torch.isfinite(v) for v in losses.values())

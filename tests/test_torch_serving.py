@@ -71,17 +71,22 @@ def test_predictor_defaults_to_cuda_and_says_so(generators):
 
 
 def test_port_imports_no_jax_flax_or_pil(tmp_path):
-    """Importing the port and chip_smoke, and running the evaluation
-    commands that the card's machine runs (no Pillow, no matplotlib there):
-    ``validate-by-class`` and ``train`` with its final table, both with
-    LPIPS, on the synthetic set at tiny sizes."""
+    """Importing the port (the zoo's seven model modules too) and
+    chip_smoke, and running the evaluation commands that the card's machine
+    runs (no Pillow, no matplotlib there): ``validate-by-class`` and
+    ``train`` with its final table, both with LPIPS, and ``train --model
+    sragan``, on the synthetic set at tiny sizes."""
     tiny = json.dumps({"base_filters": 16, "n_groups": 1, "n_blocks": 1})
     flags = ["--device", "cpu", "--data", "synthetic", "--scale", "2",
              "--crop-size", "32", "--lpips", "--save-dir", str(tmp_path),
              "--model-kwargs", tiny]
+    sragan = json.dumps({"base_filters": 16, "n_groups": 1, "n_blocks": 2})
     commands = [["validate-by-class"] + flags,
                 ["train", "--steps", "1", "--batch-size", "2", "--no-bf16"]
-                + flags]
+                + flags,
+                ["train", "--model", "sragan", "--steps", "1",
+                 "--batch-size", "2", "--no-bf16", "--no-final-eval"]
+                + flags[:-1] + [sragan]]
     code = ("import json, sys\n"
             "import sradsgan_tpu_torch, sradsgan_tpu_torch.serving\n"
             "import sradsgan_tpu_torch.cli, sradsgan_tpu_torch.models\n"
@@ -102,6 +107,13 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
             "import sradsgan_tpu_torch.evaluation.validate\n"
             "import sradsgan_tpu_torch.losses.lpips\n"
             "import sradsgan_tpu_torch.utils.plotting\n"
+            "import sradsgan_tpu_torch.models.edsr\n"
+            "import sradsgan_tpu_torch.models.srgan\n"
+            "import sradsgan_tpu_torch.models.drcan\n"
+            "import sradsgan_tpu_torch.models.dssr\n"
+            "import sradsgan_tpu_torch.models.sragan\n"
+            "import sradsgan_tpu_torch.models.ndsrgan\n"
+            "import sradsgan_tpu_torch.models.amssrn\n"
             f"for argv in {commands!r}:\n"
             "    assert sradsgan_tpu_torch.cli.main(argv) == 0\n"
             "from sradsgan_tpu_torch.data.datasets import SyntheticDataset\n"
