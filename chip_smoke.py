@@ -88,7 +88,23 @@ Phases, each of which raises (exit code 1) on failure:
    kernels miss them, to twice what those read: SRAGAN_CHECK) and timed at
    batch 16 with exact launches;
    a bf16 step of SRGAN, DRCAN and NDSRGAN; ``cli train --model X`` for
-   each of the seven at small widths.
+   each of the seven at small widths;
+10. HAT, the ninth generator, at its published width and depth (embed 96,
+   6 groups of 6 HABs, 6 heads, window 9, x4; seeded fan-in weights): the
+   batch-1 forward on the card against the CPU plain path, a batch of four
+   54^2 requests in float32 and bf16 (ms a request, no kernel launched),
+   its L1 step at batch 16 of 54^2 -> 216^2 in float32 and mixed precision
+   (ms/step, MP/s, peak GiB, finite loss) and ``cli train --model hat
+   --steps 2`` at small widths;
+11. export: the full-width x4 flagship (unfused and fused) and HAT written
+   by ``serving.export_model`` at batch 1 of 54^2 on the card, each loaded
+   in a fresh interpreter that imports the port alone
+   (``serving.load_exported``), and the flagship exported on the CPU and
+   loaded onto the card: its output against the eager generator's (the
+   same kernels on the same input), the kernel launches of one call of the
+   loaded program (the registered ops: K1, K2 48 and K3 once unfused; K6
+   48 and K3 once fused; none for HAT), and its latency against the eager
+   generator's over alternating turns.
 
 It prints the kernels' record as one JSON line before the last, and ends
 with ``{"ok": true, "device": {...}}``.
@@ -127,7 +143,7 @@ from sradsgan_tpu_torch.nn.attention import (ChannelGate, LocalAttention,
                                              SpatialSelfAttention)
 from sradsgan_tpu_torch.ops import (_build, pooling, rab_tail, sgam_flash,
                                     spatial_gate)
-from sradsgan_tpu_torch.serving import Predictor
+from sradsgan_tpu_torch.serving import Predictor, export_model
 from sradsgan_tpu_torch.tools.profile_train import make_batch, make_trainer
 
 # Kernel tolerances: max |kernel - plain| over max |plain|, per output.
@@ -891,7 +907,8 @@ def step_launches(trainer) -> dict:
 
 
 def fan_in_init(model: torch.nn.Module, seed: int) -> None:
-    """Conv kernels normal(0, 0.5 / sqrt(fan_in)) and biases normal(0, 0.05),
+    """Conv and dense kernels normal(0, 0.5 / sqrt(fan_in)) and biases
+    normal(0, 0.05),
     drawn on the CPU, as the CPU tests draw them: activations of order one
     through all 36 RABs.  At the JAX init (std 0.02) the deep gates see
     vanishing signals and their gradients are sums that cancel: a CPU
@@ -901,7 +918,7 @@ def fan_in_init(model: torch.nn.Module, seed: int) -> None:
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, torch.nn.Conv2d):
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
                 w = torch.randn(m.weight.shape, generator=gen)
                 m.weight.copy_(w * 0.5 / m.weight[0].numel() ** 0.5)
                 if m.bias is not None:
@@ -999,15 +1016,15 @@ def _plain_gate_bwd(x, w, g, with_dw: bool = True):
     return spatial_gate.spatial_gate_bwd_plain(x, w, g)
 
 
-# Each kernel's wrapper, by the module attribute its callers look it up
-# through, and the plain version that stands in for it in the kernel-free
-# control (kernels_swapped_for_plain).
+# Each kernel's wrapper, by the module attribute that its registered op's
+# CUDA implementation looks up at each call (every caller goes through the
+# op, the fused tail's backward too), and the plain version that stands in
+# for it in the kernel-free control (kernels_swapped_for_plain).
 PLAIN_STAND_INS = (
     (pooling, "avg_max_pool_cuda", pooling.avg_max_pool_plain),
     (spatial_gate, "spatial_gate_cuda",
      lambda x, w, rows=None: spatial_gate.spatial_gate_plain(x, w)),
     (spatial_gate, "spatial_gate_bwd_cuda", _plain_gate_bwd),
-    (rab_tail, "spatial_gate_bwd_cuda", _plain_gate_bwd),
     (sgam_flash, "position_attention_cuda", _plain_attention),
     (sgam_flash, "position_attention_bwd_cuda",
      lambda q, k, v, out, dout, lse:
@@ -1696,6 +1713,7 @@ ZOO_CLI_KWARGS = {
     "sragan": {"n_groups": 1, "n_blocks": 2, "rab_tail": "fused"},
     "ndsrgan": {"nf": 16, "nc": 8, "n_dcrdb": 1},
     "amssrn": {"n_feats": 16, "n_blocks": 2},
+    "hat": {"embed_dim": 24, "depths": [2], "num_heads": [2]},
 }
 
 
@@ -1903,6 +1921,225 @@ def phase_model_zoo(smi: str) -> dict:
             "launches_by_path": paths}
 
 
+def phase_hat(smi: str) -> dict:
+    """HAT x4 at its published width and depth, seeded fan-in weights
+    (``zoo_init``; its bias tables keep the seeded init): the batch-1
+    forward on the card (f32, TF32 off) against the CPU plain path, the
+    batch-4 request in f32 and bf16 (no kernel may launch), the L1 step at
+    batch 16 in f32 and mixed precision, and ``cli train --model hat``."""
+    t_start = time.perf_counter()
+    batch = np.random.default_rng(3).random((4, 54, 54, 3),
+                                            dtype=np.float32)
+    model = create_generator("hat", 4, seed=0)
+    zoo_init(model, seed=5)
+    model.eval()
+    t0 = time.perf_counter()
+    ref = forward_numpy(model, batch[:1], "cpu")
+    cpu_s = time.perf_counter() - t0
+    pred = Predictor(model, 4)
+    reset_launches()
+    got = pred(batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"HAT launched kernels: {launches}")
+    if got.shape != (4, 216, 216, 3) or not np.isfinite(got).all():
+        fail(f"HAT output {got.shape}, finite={np.isfinite(got).all()}")
+    err = float(np.abs(got[:1] - ref).max())
+    bound = SLICE_TOL * float(np.abs(ref).max())
+    pred_bf16 = Predictor(model, 4, dtype=torch.bfloat16)
+    out_bf16 = pred_bf16(batch)
+    if not np.isfinite(out_bf16).all():
+        fail("HAT bf16 output is not finite")
+    out = {"max_abs_err": err, "bound": bound, "cpu_s": cpu_s,
+           "psnr_bf16_vs_f32_db": psnr(out_bf16, got),
+           "f32_ms": latency_ms(pred, batch, iters=5),
+           "bf16_ms": latency_ms(pred_bf16, batch, iters=5),
+           "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
+    print(f"HAT x4, batch 4 x 54^2 -> 216^2 ({out['params_m']:.2f} M "
+          f"parameters): card f32 vs CPU plain path (1 image) max|d| "
+          f"{err:.3e} <= {bound:.3e}; bf16 vs f32 PSNR "
+          f"{out['psnr_bf16_vs_f32_db']:.2f} dB; {out['f32_ms']:.2f} ms f32, "
+          f"{out['bf16_ms']:.2f} ms bf16 a request; CPU took {cpu_s:.1f} s "
+          f"[{smi}]")
+    if not err <= bound:
+        fail("HAT: the card's output disagrees with the CPU plain path")
+    del pred, pred_bf16, model
+    torch.cuda.empty_cache()
+
+    step_batch = make_batch()
+    mpix = 16 * 216 * 216 / 1e6
+    for precision in ("f32", "bf16"):
+        trainer = make_trainer(precision, model="hat")
+        trainer.train_step(step_batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = 3
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            metrics = trainer.train_step(step_batch)
+        losses = {k: float(v) for k, v in metrics.items()}  # waits
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[f"{precision}_ms_per_step"] = ms
+        out[f"{precision}_mp_per_s"] = mpix / (ms / 1e3)
+        out[f"{precision}_peak_gib"] = peak
+        print(f"HAT x4 L1 train step batch 16 x 54^2 -> 216^2 {precision}: "
+              f"{ms:.2f} ms/step, {mpix / (ms / 1e3):.3f} MP/s of HR "
+              f"output, peak {peak:.2f} GiB; losses {losses} [{smi}]")
+        if not np.isfinite(list(losses.values())).all():
+            fail(f"HAT {precision} step losses are not finite: {losses}")
+        del trainer, metrics
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as save_dir:
+        _zoo_cli_train("hat", save_dir, smi)
+    print("cli train --model hat --steps 2 at small widths returned 0")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"HAT phase: {out['seconds']:.1f} s")
+    return out
+
+
+# phase_export: the artifacts are loaded and run by this program in a
+# fresh interpreter that imports the port alone; argv: the directory holding
+# x.npy, <case>.pt2 and <case>.state.pt, then JSON {case: [model name,
+# constructor arguments, the device to load the program onto or null for
+# the one it was exported on]}.  It prints one JSON line, by case.
+EXPORT_CHILD = """
+import json, sys, time
+import numpy as np, torch
+from sradsgan_tpu_torch.evaluation.tiled import forward_numpy
+from sradsgan_tpu_torch.models import create_generator
+from sradsgan_tpu_torch.ops import pooling, rab_tail, sgam_flash, spatial_gate
+from sradsgan_tpu_torch.serving import load_exported
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+tmp, cases = sys.argv[1], json.loads(sys.argv[2])
+wrappers = {"avg_max_pool": pooling.avg_max_pool_cuda,
+            "spatial_gate": spatial_gate.spatial_gate_cuda,
+            "position_attention": sgam_flash.position_attention_cuda,
+            "spatial_gate_bwd": spatial_gate.spatial_gate_bwd_cuda,
+            "position_attention_bwd": sgam_flash.position_attention_bwd_cuda,
+            "rab_tail": rab_tail.rab_tail_cuda}
+
+def counted(run):
+    for f in wrappers.values():
+        f.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in wrappers.items()}
+
+x = np.load(f"{tmp}/x.npy")
+rows = {}
+for case, (name, kwargs, device) in cases.items():
+    t0 = time.perf_counter()
+    program = load_exported(f"{tmp}/{case}.pt2", device)
+    load_s = time.perf_counter() - t0
+    model = create_generator(name, 4, **kwargs)
+    model.load_state_dict(torch.load(f"{tmp}/{case}.state.pt",
+                                     weights_only=True))
+    model = model.cuda().eval()
+    runs = {"program": lambda: program(x),
+            "eager": lambda: forward_numpy(model, x, "cuda")}
+    got, program_launches = counted(runs["program"])
+    want, eager_launches = counted(runs["eager"])
+    for _ in range(3):
+        runs["program"](), runs["eager"]()
+    turns = {"program": [], "eager": []}
+    for _ in range(5):
+        for key, run in runs.items():
+            t0 = time.perf_counter()
+            for _ in range(10):
+                run()
+            turns[key].append((time.perf_counter() - t0) / 10 * 1e3)
+    rows[case] = {
+        "max_abs_err": float(np.abs(got - want).max()),
+        "max_ref": float(np.abs(want).max()), "shape": list(got.shape),
+        "program_launches": program_launches,
+        "eager_launches": eager_launches, "program_ms": turns["program"],
+        "eager_ms": turns["eager"], "load_s": load_s}
+    del program, model, runs
+rows["jax_or_jax_package"] = any(
+    m in sys.modules for m in ("jax", "flax", "sradsgan_tpu"))
+print(json.dumps(rows))
+"""
+# case: (model, constructor arguments, the launches of one call, the
+# device the program is exported on); one traced on the CPU is loaded onto
+# the card.
+UNFUSED_CALL = {"avg_max_pool": 48, "spatial_gate": 48,
+                "position_attention": 1}
+EXPORT_CASES = {
+    "sradsgan": ("sradsgan", {}, UNFUSED_CALL, "cuda"),
+    "sradsgan_fused": ("sradsgan", {"rab_tail": "fused"},
+                       {"rab_tail": 48, "position_attention": 1}, "cuda"),
+    "hat": ("hat", {}, {}, "cuda"),
+    "sradsgan_from_cpu": ("sradsgan", {}, UNFUSED_CALL, "cpu"),
+}
+
+
+def phase_export(smi: str) -> dict:
+    """Each case of EXPORT_CASES at x4, full width, seeded fan-in weights
+    (``zoo_init``): exported at batch 1 of 54^2 on the card (or on the CPU
+    and loaded onto the card), then loaded and run in a fresh interpreter
+    (EXPORT_CHILD), where each loaded program's output must equal the
+    eager generator's on the card within 1e-6 of max|ref| and its one call
+    must launch exactly the kernels the case lists."""
+    t_start = time.perf_counter()
+    out = {}
+    x = np.random.default_rng(4).random((1, 54, 54, 3), dtype=np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "x.npy"), x)
+        for case, (name, kwargs, _, device) in EXPORT_CASES.items():
+            model = create_generator(name, 4, seed=0, **kwargs)
+            zoo_init(model, seed=5)
+            torch.save(model.state_dict(),
+                       os.path.join(tmp, f"{case}.state.pt"))
+            t0 = time.perf_counter()
+            path = export_model(model, 54, os.path.join(tmp, f"{case}.pt2"),
+                                device=device)
+            out[case] = {"export_s": time.perf_counter() - t0,
+                         "artifact_mb": os.path.getsize(path) / 2 ** 20}
+            del model
+        cases = {case: [name, kwargs, "cuda" if device == "cpu" else None]
+                 for case, (name, kwargs, _, device)
+                 in EXPORT_CASES.items()}
+        child = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD, tmp, json.dumps(cases)],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    if child.returncode != 0:
+        fail(f"loading the artifacts failed:\n{child.stderr[-3000:]}")
+    rows = json.loads(child.stdout.strip().splitlines()[-1])
+    if rows.pop("jax_or_jax_package"):
+        fail("loading the artifacts imported JAX or the JAX package")
+    for case, (_, _, launches, device) in EXPORT_CASES.items():
+        row = out[case]
+        row.update(rows[case])
+        want = {k: launches.get(k, 0) for k in KERNELS}
+        med = {k: float(np.median(row[f"{k}_ms"]))
+               for k in ("program", "eager")}
+        print(f"export {case} x4 (1 x 54^2, f32): exported on {device} in "
+              f"{row['export_s']:.1f} s, {row['artifact_mb']:.1f} MiB, "
+              f"loaded in {row['load_s']:.1f} s in a fresh interpreter; "
+              f"loaded vs eager max|d| {row['max_abs_err']:.3e} (max|ref| "
+              f"{row['max_ref']:.3f}); launches a call "
+              f"{row['program_launches']}; ms a request over alternating "
+              f"turns: loaded {[round(v, 3) for v in row['program_ms']]} "
+              f"median {med['program']:.3f}, eager "
+              f"{[round(v, 3) for v in row['eager_ms']]} median "
+              f"{med['eager']:.3f} [{smi}]")
+        if not row["max_abs_err"] <= 1e-6 * row["max_ref"]:
+            fail(f"the loaded {case} program disagrees with the eager "
+                 "generator")
+        if row["program_launches"] != want or row["eager_launches"] != want:
+            fail(f"{case}: launches a call, loaded {row['program_launches']}"
+                 f", eager {row['eager_launches']}, not {want}")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"export phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # Full float32 in the plain versions too: cuDNN would run the float32
     # convs in TF32 (about three decimal digits) by default.
@@ -1924,6 +2161,8 @@ def main() -> int:
     cli_train = phase_cli_train(smi)
     eval_protocol = phase_eval_protocol(smi)
     zoo = phase_model_zoo(smi)
+    hat = phase_hat(smi)
+    exported = phase_export(smi)
     paths = {"serving": serving["launches"],
              "serving_fused": serving["fused_launches"],
              **{f"train_{k[len('launches_'):]}": v
@@ -1952,6 +2191,7 @@ def main() -> int:
                       "cli_train": {k: v for k, v in cli_train.items()
                                     if k != "launches"},
                       "eval_protocol": eval_protocol, "model_zoo": zoo,
+                      "hat": hat, "export": exported,
                       "strips": plans, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

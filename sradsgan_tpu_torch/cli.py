@@ -9,13 +9,15 @@
         --ckpt Result/SRADSGAN_x4/ckpt_best.pt [--lpips] [--save-img]
     python -m sradsgan_tpu_torch.cli infer --model sradsgan --scale 4 \\
         --image scene.tif --ckpt Result/SRADSGAN_x4/ckpt_best.pt
+    python -m sradsgan_tpu_torch.cli export --model sradsgan --scale 4 \
+        --lr-size 54 --out m.pt2 [--ckpt ...] [--device cpu]
     python -m sradsgan_tpu_torch.cli list-models
 
 Each command takes the flags of its ``python -m sradsgan_tpu.cli``
 counterpart, so a JAX command line parses unchanged, plus ``--device``
 (default ``cuda``; ``cpu`` runs the kernels' plain versions).  ``--model``
-is any model ``list-models`` prints (the JAX package's nine but HAT), with
-its recipe from ``models.config_for_model``.
+is any model ``list-models`` prints (the JAX package's nine), with its
+recipe from ``models.config_for_model``.
 
 ``train`` archives a stale run directory (unless ``--resume``), builds the
 ``Trainer``, runs its epoch loop (``--steps`` stops after N steps instead),
@@ -29,7 +31,8 @@ trained generator as every reference ``main_*.py`` does (LPIPS columns with
 and discriminator warm-started from the previous scale's ``ckpt_best.pt``
 (else its last epoch's checkpoint).
 
-``validate``, ``validate-by-class`` and ``infer`` load the generator from
+``validate``, ``validate-by-class``, ``infer`` and ``export`` load the
+generator from
 ``--ckpt`` (a checkpoint ``train`` wrote, ``ckpt_epoch_N.pt`` or
 ``ckpt_best.pt``: its ``"generator"`` state dict) or ``--weights`` (the
 JAX generator of ``--model`` as ``.npz``, see ``tools/from_jax.py``), not
@@ -41,6 +44,9 @@ neither it keeps its seeded random init, as the JAX CLI does without
 ``evaluation.validate.mfe_test_single``: the image, centre-cropped by
 ``--test-crop``, goes through the generator as it is, and the SR png, the
 bicubic png and, where matplotlib imports, the panel are written.
+``export`` writes the generator as a ``torch.export`` program traced at
+batch 1 of ``--lr-size``^2 (``serving.export_model``; the weights inside,
+float32, on ``--device``), which ``serving.load_exported`` reads back.
 Without the LPIPS trunk's weights (``SRADSGAN_TPU_ALEXNET_NPZ``)
 ``--lpips`` says that it reports the uncalibrated ``lpips*``.
 """
@@ -238,6 +244,15 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    from sradsgan_tpu_torch.serving import export_model
+
+    path = export_model(_load_eval_model(args), args.lr_size, args.out,
+                        device=args.device)
+    print(json.dumps({"exported": path}))
+    return 0
+
+
 def cmd_list_models(_args) -> int:
     from sradsgan_tpu_torch.models import available_models, get_spec
 
@@ -306,6 +321,14 @@ def main(argv=None) -> int:
     p.add_argument("--test-crop", type=int, default=None)
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_infer)
+
+    p = sub.add_parser("export", help="export a model (torch.export, .pt2)")
+    _add_common(p)
+    add_eval_model(p)
+    p.add_argument("--lr-size", type=int, default=54)
+    p.add_argument("--out", default="exported_model.pt2")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("list-models")
     p.set_defaults(fn=cmd_list_models)

@@ -14,9 +14,10 @@ sragan     wgan-gp      L1 + 1e-2 * VGG + 1e-3 * adv (CBAM D)
 ndsrgan    lsgan        1e-2 * MSE + VGG + 2.5e-3 * adv (4x4 D)
 amssrn     no           L1
 sradsgan   wgan-gp      L1 + 1e-2 * VGG + 1e-3 * adv (CBAM D)
+hat        no           L1
 =========  ===========  ===============================================
 
-HAT is not ported yet (ROADMAP.md Queue 1).  :func:`config_for_model` fills
+:func:`config_for_model` fills
 the port's ``TrainConfig`` (``sradsgan_tpu_torch/config.py``) from the
 registry and the JAX ``config_for_model``'s per-model cases.
 """
@@ -34,6 +35,7 @@ from sradsgan_tpu_torch.models.discriminators import PatchDiscriminator
 from sradsgan_tpu_torch.models.drcan import DRCAN
 from sradsgan_tpu_torch.models.dssr import DSSR
 from sradsgan_tpu_torch.models.edsr import EDSR
+from sradsgan_tpu_torch.models.hat import HAT
 from sradsgan_tpu_torch.models.ndsrgan import (NDSRGAN_D_BLOCKS,
                                                NDSRGANGenerator)
 from sradsgan_tpu_torch.models.sradsgan import SRADSGANGenerator
@@ -98,6 +100,7 @@ _REGISTRY = {
                           gan_type="wgan-gp", discriminator=_cbam_d,
                           pixel_loss="l1", weight_content=1e-2,
                           weight_gan=1e-3),
+    "hat": ModelSpec("hat", HAT, pixel_loss="l1"),
 }
 
 
@@ -113,10 +116,8 @@ def get_spec(name: str) -> ModelSpec:
     try:
         return _REGISTRY[name.lower()]
     except KeyError:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet; the port has "
-            f"{available_models()} and ROADMAP.md (Queue 1) lists the rest in "
-            "order") from None
+        raise KeyError(f"unknown model {name!r}; have "
+                       f"{available_models()}") from None
 
 
 def create_generator(name: str, scale: int, **kwargs) -> nn.Module:

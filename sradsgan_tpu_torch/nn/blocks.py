@@ -181,26 +181,40 @@ class NearestConvUpsample(nn.Module):
         return x
 
 
+def _trunc02(t: torch.Tensor, gen: torch.Generator) -> None:
+    """Flax's ``truncated_normal(stddev=0.02)``: normal(0, 0.02) cut at two
+    standard deviations."""
+    s = KERNEL_INIT_STD
+    nn.init.trunc_normal_(t, 0.0, s, -2 * s, 2 * s, generator=gen)
+
+
 def materialize(model: nn.Module, seed: int) -> None:
     """Give a model built on the meta device CPU storage and the JAX
     package's init, drawn from ``torch.Generator().manual_seed(seed)`` in
     module order: conv kernels normal(0, 0.02) (all zero for a conv whose
-    ``zero_init`` is set), biases zero, BatchNorm scale one, shift zero and
-    fresh running statistics, PReLU slopes 0.25, the attention gains
-    ``gamma`` zero.  A parameter of any other kind raises."""
+    ``zero_init`` is set, truncated at two standard deviations for one
+    whose ``trunc_init`` is set, a Dense layer in JAX), dense kernels and
+    HAT's ``relative_position_bias_table``s normal(0, 0.02) truncated
+    likewise, biases zero, BatchNorm and LayerNorm scale one and shift zero
+    (BatchNorm with fresh running statistics), PReLU slopes 0.25, the
+    attention gains ``gamma`` zero.  A parameter of any other kind
+    raises."""
     model.to_empty(device="cpu")
     gen = torch.Generator().manual_seed(seed)
     done = set()
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
                 if getattr(m, "zero_init", False):
                     m.weight.zero_()
+                elif (isinstance(m, nn.Linear)
+                      or getattr(m, "trunc_init", False)):
+                    _trunc02(m.weight, gen)
                 else:
                     m.weight.normal_(0.0, KERNEL_INIT_STD, generator=gen)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
             elif isinstance(m, PReLU):
                 m.weight.fill_(0.25)
@@ -208,7 +222,10 @@ def materialize(model: nn.Module, seed: int) -> None:
                 continue
             done.update(id(p) for p in m.parameters(recurse=False))
         for name, p in model.named_parameters():
-            if name.rpartition(".")[2] == "gamma":
+            leaf = name.rpartition(".")[2]
+            if leaf == "gamma":
                 p.zero_()
+            elif leaf == "relative_position_bias_table":
+                _trunc02(p, gen)
             elif id(p) not in done:
                 raise TypeError(f"materialize: no init for {name}")

@@ -14,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-from sradsgan_tpu_torch.ops import _build, plain_dtype
+from sradsgan_tpu_torch.ops import _build, define, plain_dtype
 
 
 def avg_max_pool_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -38,10 +38,17 @@ def avg_max_pool_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 avg_max_pool_cuda.launches = 0
 
 
-def _pool(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    if x.device.type == "cpu":
-        return avg_max_pool_plain(x)
+def _pool_cuda(x):
+    # the wrapper by its module attribute, looked up at each call
     return avg_max_pool_cuda(x)
+
+
+def _pool_fake(x):
+    return x.new_empty(x.shape[:2]), x.new_empty(x.shape[:2])
+
+
+_pool = define("avg_max_pool(Tensor x) -> (Tensor, Tensor)",
+               avg_max_pool_plain, _pool_cuda, _pool_fake)
 
 
 def avg_max_pool_bwd_plain(x: torch.Tensor, davg: torch.Tensor,

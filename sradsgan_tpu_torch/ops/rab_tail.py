@@ -17,9 +17,12 @@ The backward is hand-written on the saved byproducts, as the JAX package's
 is jnp outside its kernel (``_bwd_jnp``): plain PyTorch, except that on a
 CUDA tensor its SLAM part, which is exactly the spatial gate's backward of
 (u, slam_w, d(u * gate_s)), launches that op's backward kernel
-(``csrc/spatial_gate_bwd.cu``), which gives du and dslam_w.  First order
-only, as in JAX: generators use it, the discriminator (whose gradient
-penalty needs a second order) never does, and a second order raises.
+(``csrc/spatial_gate_bwd.cu``, through the registered op
+``torch.ops.sradsgan_tpu_torch.spatial_gate_bwd``), which gives du and
+dslam_w.  The forward's dispatch is the registered op ``::rab_tail``.
+First order only, as in JAX: generators use it, the discriminator (whose
+gradient penalty needs a second order) never does, and a second order
+raises.
 """
 
 from __future__ import annotations
@@ -30,10 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from sradsgan_tpu_torch.ops import _build, plain_dtype
-from sradsgan_tpu_torch.ops.spatial_gate import (KERNEL_SIZE, PAD,
+from sradsgan_tpu_torch.ops import _build, define, plain_dtype
+from sradsgan_tpu_torch.ops.spatial_gate import (KERNEL_SIZE, PAD, _gate_bwd,
                                                  dw_contraction,
-                                                 spatial_gate_bwd_cuda,
                                                  strip_planes)
 
 MAX_CHANNELS = 256   # csrc/rab_tail.cu: W_fuse's slab in shared memory
@@ -151,10 +153,14 @@ def rab_tail_cuda(t: torch.Tensor, x_res: torch.Tensor, w1: torch.Tensor,
     plan = _build.plan("sg_rab_tail", t.device, (b, c, hidden, h, w),
                        t.dtype)
     out = torch.empty_like(t)
-    gate_c, avg_t, max_t = torch.empty((3, b, c), device=t.device,
-                                       dtype=torch.float32)
-    gate_s, mean_u, max_u = torch.empty((3, b, h, w), device=t.device,
+    # seven tensors of their own: the outputs of a registered op may not
+    # share storage
+    gate_c, avg_t, max_t = (torch.empty((b, c), device=t.device,
                                         dtype=torch.float32)
+                            for _ in range(3))
+    gate_s, mean_u, max_u = (torch.empty((b, h, w), device=t.device,
+                                         dtype=torch.float32)
+                             for _ in range(3))
     _build.launch("sg_rab_tail", t.device, t.data_ptr(), x_res.data_ptr(),
                   w1.data_ptr(), w2.data_ptr(), slam_w.data_ptr(),
                   fuse_w.data_ptr(), fuse_b.data_ptr(), out.data_ptr(),
@@ -169,10 +175,24 @@ def rab_tail_cuda(t: torch.Tensor, x_res: torch.Tensor, w1: torch.Tensor,
 rab_tail_cuda.launches = 0
 
 
-def _forward(t, x_res, w1, w2, slam_w, fuse_w, fuse_b):
-    if t.device.type == "cpu":
-        return rab_tail_plain(t, x_res, w1, w2, slam_w, fuse_w, fuse_b)
-    return rab_tail_cuda(t, x_res, w1, w2, slam_w, fuse_w, fuse_b)
+def _forward_cuda(*args):
+    # the wrapper by its module attribute, looked up at each call
+    return rab_tail_cuda(*args)
+
+
+def _forward_fake(t, x_res, w1, w2, slam_w, fuse_w, fuse_b):
+    b, c, h, w = t.shape
+    dt = plain_dtype(t)
+    gate_c, avg_t, max_t = (t.new_empty((b, c), dtype=dt) for _ in range(3))
+    gate_s, mean_u, max_u = (t.new_empty((b, h, w), dtype=dt)
+                             for _ in range(3))
+    return torch.empty_like(t), gate_c, gate_s, mean_u, max_u, avg_t, max_t
+
+
+_forward = define(
+    "rab_tail(Tensor t, Tensor x_res, Tensor w1, Tensor w2, Tensor slam_w, "
+    "Tensor fuse_w, Tensor fuse_b) -> (Tensor, Tensor, Tensor, Tensor, "
+    "Tensor, Tensor, Tensor)", rab_tail_plain, _forward_cuda, _forward_fake)
 
 
 def rab_tail_bwd(t: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -199,7 +219,7 @@ def rab_tail_bwd(t: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 
         # SLAM backward: the spatial gate's backward of (u, slam_w, dwgated)
         if t.device.type == "cuda":
-            du, dslam_w = spatial_gate_bwd_cuda(u, slam_w, dwgated)
+            du, dslam_w = _gate_bwd(u, slam_w, dwgated)
         else:
             ds = (dwgated * u).sum(1) * gate_s * (1.0 - gate_s)
             dplanes = F.conv_transpose2d(ds[:, None], slam_w.to(dt_),

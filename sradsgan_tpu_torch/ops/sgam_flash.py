@@ -9,7 +9,11 @@ log-sum-exp the forward saved.  Both run their products on the tensor cores:
 bfloat16 inputs directly, float32 inputs as error-compensated TF32 products
 that keep float32 accuracy (``csrc/sgam_mma.cuh``).  On CPU tensors it runs
 :func:`position_attention_plain`, the exact float32 softmax of the JAX
-package's f32 path (``sradsgan_tpu/nn/attention.py``), and its autograd.
+package's f32 path (``sradsgan_tpu/nn/attention.py``), and its gradient
+written out.  The dispatch is the registered ops
+``torch.ops.sradsgan_tpu_torch.position_attention`` (the output and, with
+``with_lse``, the row log-sum-exp, else an empty tensor in its place) and
+``::position_attention_bwd``.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from sradsgan_tpu_torch.ops import _build, plain_dtype
+from sradsgan_tpu_torch.ops import _build, define, plain_dtype
 
 # (d_qk, d_v) pairs the kernels are instantiated for: SGAM at C = 16, 32, 64.
 KERNEL_WIDTHS = ((2, 16), (4, 32), (8, 64))
@@ -38,12 +42,19 @@ def position_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def position_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, dout: torch.Tensor
                                  ) -> Tuple[torch.Tensor, ...]:
-    """(dq, dk, dv) for output cotangent dout: the autograd of
-    :func:`position_attention_plain`."""
-    with torch.enable_grad():
-        inputs = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = position_attention_plain(*inputs)
-        return torch.autograd.grad(out, inputs, dout)
+    """(dq, dk, dv) for output cotangent dout: the gradient of
+    :func:`position_attention_plain` written out in the ops its autograd
+    runs (the softmax's backward as P * (dP - rowsum(dP * P))), so that it
+    needs no autograd of its own inside the registered op."""
+    dtype = plain_dtype(q)
+    with torch.autocast(q.device.type, enabled=False):
+        q_, k_, v_, do_ = (t.to(dtype) for t in (q, k, v, dout))
+        p = torch.softmax(torch.bmm(q_, k_.transpose(1, 2)), dim=-1)
+        dp = torch.bmm(do_, v_.transpose(1, 2))
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        return (torch.bmm(ds, k_).to(q.dtype),
+                torch.bmm(ds.transpose(1, 2), q_).to(k.dtype),
+                torch.bmm(p.transpose(1, 2), do_).to(v.dtype))
 
 
 def position_attention_plain_chunked(q: torch.Tensor, k: torch.Tensor,
@@ -158,19 +169,60 @@ def position_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 position_attention_bwd_cuda.launches = 0
 
 
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def _attention_plain(q, k, v, with_lse=False):
+    out = position_attention_plain(q, k, v)
+    if not with_lse:
+        return out, _no_lse(q)
+    with torch.autocast(q.device.type, enabled=False):
+        energy = torch.bmm(q.float(), k.float().transpose(1, 2))
+    return out, torch.logsumexp(energy, dim=-1)
+
+
+# The wrappers by their module attributes, looked up at each call.
+def _attention_cuda(q, k, v, with_lse=False):
+    if with_lse:
+        return position_attention_cuda(q, k, v, with_lse=True)
+    return position_attention_cuda(q, k, v), _no_lse(q)
+
+
+def _attention_bwd_cuda(q, k, v, out, dout, lse):
+    return position_attention_bwd_cuda(q, k, v, out, dout, lse)
+
+
+def _attention_fake(q, k, v, with_lse=False):
+    lse = (q.new_empty(q.shape[:2], dtype=torch.float32) if with_lse
+           else _no_lse(q))
+    return torch.empty_like(v), lse
+
+
+_attention = define(
+    "position_attention(Tensor q, Tensor k, Tensor v, bool with_lse=False) "
+    "-> (Tensor, Tensor)", _attention_plain, _attention_cuda,
+    _attention_fake)
+_attention_bwd = define(
+    "position_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+    "Tensor dout, Tensor lse) -> (Tensor, Tensor, Tensor)",
+    lambda q, k, v, out, dout, lse: position_attention_bwd_plain(q, k, v,
+                                                                 dout),
+    _attention_bwd_cuda,
+    lambda q, k, v, out, dout, lse: (torch.empty_like(q), torch.empty_like(k),
+                                     torch.empty_like(v)))
+
+
 class PositionAttentionFn(torch.autograd.Function):
     """Forward: the flash kernel, saving q, k, v, the output and the row
-    log-sum-exp (plain on the CPU).  Backward: the flash backward kernels,
-    or :func:`position_attention_bwd_plain` on the CPU.  First order only:
-    nothing differentiates SGAM twice."""
+    log-sum-exp (the plain version on the CPU).  Backward: the flash
+    backward kernels, or :func:`position_attention_bwd_plain` on the CPU.
+    First order only: nothing differentiates SGAM twice."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, q, k, v):
-        if q.device.type == "cpu":
-            ctx.save_for_backward(q, k, v)
-            return position_attention_plain(q, k, v)
-        out, lse = position_attention_cuda(q, k, v, with_lse=True)
+        out, lse = _attention(q, k, v, True)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -178,11 +230,8 @@ class PositionAttentionFn(torch.autograd.Function):
     @torch.amp.custom_bwd(device_type="cuda")
     @once_differentiable
     def backward(ctx, dout):
-        if dout.device.type == "cpu":
-            return position_attention_bwd_plain(*ctx.saved_tensors, dout)
         q, k, v, out, lse = ctx.saved_tensors
-        return position_attention_bwd_cuda(q, k, v, out, dout.contiguous(),
-                                           lse)
+        return _attention_bwd(q, k, v, out, dout.contiguous(), lse)
 
 
 def position_attention(q: torch.Tensor, k: torch.Tensor,
@@ -190,6 +239,4 @@ def position_attention(q: torch.Tensor, k: torch.Tensor,
     """Unscaled softmax(q k^T) v over key positions; differentiable once."""
     if _build.needs_grad(q, k, v):
         return PositionAttentionFn.apply(q, k, v)
-    if q.device.type == "cpu":
-        return position_attention_plain(q, k, v)
-    return position_attention_cuda(q, k, v)
+    return _attention(q, k, v)[0]

@@ -5,9 +5,10 @@ in ``sradsgan_tpu/ops/pallas/slam.py``.  On a CUDA tensor the forward
 launches the hand-written kernels in ``csrc/spatial_gate.cu`` and the
 backward the one in ``csrc/spatial_gate_bwd.cu`` (dx and dw in one call);
 on a CPU tensor they run :func:`spatial_gate_plain` and
-:func:`spatial_gate_bwd_plain`.  The gate
-math runs in float32 whatever x's dtype, as in the JAX package; the stat
-planes are zero-padded outside the image (SAME conv).
+:func:`spatial_gate_bwd_plain`.  The dispatch is the registered ops
+``torch.ops.sradsgan_tpu_torch.spatial_gate`` and ``::spatial_gate_bwd``.
+The gate math runs in float32 whatever x's dtype, as in the JAX package;
+the stat planes are zero-padded outside the image (SAME conv).
 
 Gradients mirror the JAX custom-VJP stack (``slam.py:438-460, 517-565``):
 :class:`SpatialGateFn`'s backward is itself an op, :class:`SpatialGateBwdFn`,
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from sradsgan_tpu_torch.ops import _build, plain_dtype
+from sradsgan_tpu_torch.ops import _build, define, plain_dtype
 
 KERNEL_SIZE = 7
 PAD = KERNEL_SIZE // 2
@@ -223,10 +224,24 @@ def spatial_gate_bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 spatial_gate_bwd_cuda.launches = 0
 
 
-def _gate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return spatial_gate_plain(x, w)
-    return spatial_gate_cuda(x, w)
+# The wrappers by their module attributes, looked up at each call.
+def _gate_cuda(x, w, rows=None):
+    return spatial_gate_cuda(x, w, rows)
+
+
+def _gate_bwd_cuda(x, w, g, with_dw=True):
+    return spatial_gate_bwd_cuda(x, w, g, with_dw)
+
+
+_gate = define("spatial_gate(Tensor x, Tensor w, int? rows=None) -> Tensor",
+               lambda x, w, rows=None: spatial_gate_plain(x, w), _gate_cuda,
+               lambda x, w, rows=None: torch.empty_like(x))
+_gate_bwd = define(
+    "spatial_gate_bwd(Tensor x, Tensor w, Tensor g, bool with_dw=True) "
+    "-> (Tensor, Tensor)",
+    lambda x, w, g, with_dw=True: spatial_gate_bwd_plain(x, w, g),
+    _gate_bwd_cuda,
+    lambda x, w, g, with_dw=True: (torch.empty_like(x), torch.empty_like(w)))
 
 
 class SpatialGateBwdFn(torch.autograd.Function):
@@ -238,9 +253,7 @@ class SpatialGateBwdFn(torch.autograd.Function):
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, x, w, g):
         ctx.save_for_backward(x, w, g)
-        if x.device.type == "cpu":
-            return spatial_gate_bwd_plain(x, w, g)
-        return spatial_gate_bwd_cuda(x, w, g)
+        return _gate_bwd(x, w, g)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")

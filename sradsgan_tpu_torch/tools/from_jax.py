@@ -5,7 +5,7 @@ One function per network, each the inverse of its reader in
 (nested dicts of arrays; for a network with BatchNorm the variables
 ``{"params", "batch_stats"}``) and returns the port's ``state_dict``.
 :func:`generator_state_dict` dispatches on the model's name to
-``{sradsgan,edsr,srgan,drcan,dssr,sragan,ndsrgan,amssrn}_state_dict``;
+``{sradsgan,edsr,srgan,drcan,dssr,sragan,ndsrgan,amssrn,hat}_state_dict``;
 :func:`discriminator_state_dict` covers the patch discriminators (the
 inverse of ``import_patch_discriminator``), :func:`vgg19_state_dict` the
 VGG19 content features (the JAX param tree, or the ``.npz`` of
@@ -13,7 +13,9 @@ VGG19 content features (the JAX param tree, or the ``.npz`` of
 :func:`lpips_state_dict` LPIPS (its trunk, as the ``.npz`` of
 ``SRADSGAN_TPU_{ALEXNET,VGG16,SQUEEZENET}_NPZ`` holds it, and its heads).
 Conv kernels go HWIO -> OIHW, Dense kernels (in, out) -> 1x1 convs (out,
-in, 1, 1) (the reference's attention MLPs are convs), the SLAM kernel (7,
+in, 1, 1) (the reference's attention MLPs are convs) or, where the
+reference has a linear layer (HAT's), -> (out, in), LayerNorm scale and
+bias -> weight and bias, the SLAM kernel (7,
 7, 2, 1) -> (1, 2, 7, 7) with plane 0 the channel mean and plane 1 the
 channel max, BatchNorm scale and bias -> weight and bias with the running
 mean and variance, a PReLU's alpha -> its weight, and each ``gamma`` stays
@@ -68,6 +70,15 @@ class _StateDict(dict):
         self[f"{name}.weight"] = _dense_as_conv(node["kernel"])
         if bias:
             self[f"{name}.bias"] = _f32(node["bias"])
+
+    def linear(self, name: str, node: Tree) -> None:
+        """A Dense layer as the reference's linear layer."""
+        self[f"{name}.weight"] = _f32(node["kernel"]).T
+        self[f"{name}.bias"] = _f32(node["bias"])
+
+    def layer_norm(self, name: str, node: Tree) -> None:
+        self[f"{name}.weight"] = _f32(node["scale"])
+        self[f"{name}.bias"] = _f32(node["bias"])
 
     def batch_norm(self, name: str, params: Tree, stats: Tree) -> None:
         self[f"{name}.weight"] = _f32(params["scale"])
@@ -336,11 +347,62 @@ def amssrn_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
     return sd.tensors()
 
 
+def hat_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``HAT`` params -> the port's ``HAT`` state dict (the inverse of
+    ``import_reference.import_hat``): the CAB's channel attention as 1x1
+    convs, the other Dense layers as linear layers, both bias tables as
+    they are."""
+    params = _params(params)
+    sd = _StateDict()
+
+    def mlp(prefix: str, node: Tree) -> None:
+        sd.linear(f"{prefix}.mlp.fc1", node["Mlp_0"]["Dense_0"])
+        sd.linear(f"{prefix}.mlp.fc2", node["Mlp_0"]["Dense_1"])
+
+    sd.conv("conv_first", params["ConvBlock_0"]["Conv_0"])
+    sd.layer_norm("patch_embed.norm", params["LayerNorm_0"])
+    for i in range(_count(params, "RHAG_")):
+        rhag = params[f"RHAG_{i}"]
+        group = f"layers.{i}.residual_group"
+        for j in range(_count(rhag, "HAB_")):
+            hab, prefix = rhag[f"HAB_{j}"], f"{group}.blocks.{j}"
+            sd.layer_norm(f"{prefix}.norm1", hab["LayerNorm_0"])
+            cab = hab["CAB_0"]
+            sd.conv(f"{prefix}.conv_block.cab.0", cab["ConvBlock_0"]["Conv_0"])
+            sd.conv(f"{prefix}.conv_block.cab.2", cab["ConvBlock_1"]["Conv_0"])
+            for k, idx in enumerate((1, 3)):
+                sd.dense(f"{prefix}.conv_block.cab.3.attention.{idx}",
+                         cab["ChannelAttentionHAT_0"][f"Dense_{k}"])
+            wa = hab["WindowAttention_0"]
+            sd.linear(f"{prefix}.attn.qkv", wa["Dense_0"])
+            sd.linear(f"{prefix}.attn.proj", wa["Dense_1"])
+            sd[f"{prefix}.attn.relative_position_bias_table"] = _f32(
+                wa["relative_position_bias_table"])
+            sd.layer_norm(f"{prefix}.norm2", hab["LayerNorm_1"])
+            mlp(prefix, hab)
+        ocab, prefix = rhag["OCAB_0"], f"{group}.overlap_attn"
+        sd.layer_norm(f"{prefix}.norm1", ocab["LayerNorm_0"])
+        sd.linear(f"{prefix}.qkv", ocab["Dense_0"])
+        sd[f"{prefix}.relative_position_bias_table"] = _f32(
+            ocab["relative_position_bias_table"])
+        sd.linear(f"{prefix}.proj", ocab["Dense_1"])
+        sd.layer_norm(f"{prefix}.norm2", ocab["LayerNorm_1"])
+        mlp(prefix, ocab)
+        sd.conv(f"layers.{i}.conv", rhag["ConvBlock_0"]["Conv_0"])
+    sd.layer_norm("norm", params["LayerNorm_1"])
+    sd.conv("conv_after_body", params["ConvBlock_1"]["Conv_0"])
+    sd.conv("conv_before_upsample.0", params["ConvBlock_2"]["Conv_0"])
+    sd.conv("upsample.upsampling.0", params["UpsampleHead_0"]["Conv_0"])
+    sd.conv("conv_last", params["ConvBlock_3"]["Conv_0"])
+    return sd.tensors()
+
+
 GENERATOR_BRIDGES = {
     "sradsgan": sradsgan_state_dict, "edsr": edsr_state_dict,
     "srgan": srgan_state_dict, "drcan": drcan_state_dict,
     "dssr": dssr_state_dict, "sragan": sragan_state_dict,
     "ndsrgan": ndsrgan_state_dict, "amssrn": amssrn_state_dict,
+    "hat": hat_state_dict,
 }
 
 
@@ -352,9 +414,8 @@ def generator_state_dict(model: str,
     try:
         bridge = GENERATOR_BRIDGES[model.lower()]
     except KeyError:
-        raise NotImplementedError(
-            f"no weight bridge for model {model!r}; the port has "
-            f"{sorted(GENERATOR_BRIDGES)}") from None
+        raise KeyError(f"no weight bridge for model {model!r}; have "
+                       f"{sorted(GENERATOR_BRIDGES)}") from None
     return bridge(variables)
 
 

@@ -1,20 +1,29 @@
-"""The batch-4 serving request's latency and the host's cost of an eager
-gate-forward call, for comparing two trees of the repo on one machine.
+"""The batch-4 serving request's latency, the f32 train step's and the
+host's cost of an eager gate-forward call, for comparing two trees of the
+repo on one machine.
 
     python -m sradsgan_tpu_torch.tools.request_probe LABEL
 
 Run it from the root of each tree in turn (parent, change, change, parent):
-the kernels are built from that tree's ``csrc/``.  Prints one line:
+the kernels are built from that tree's ``csrc/``; a tree whose copy of this
+file is older takes this one (it needs only ``Predictor``,
+``spatial_gate`` and ``tools/profile_train.py``).  Prints one line:
 
 - the host time of 200 back-to-back ``spatial_gate_cuda`` calls at
-  (16, 64, 54, 54) float32 with the card idle, per call;
+  (16, 64, 54, 54) float32 with the card idle, per call, and of 200 calls
+  of ``spatial_gate.spatial_gate``, the entry the generator calls (under
+  no-grad), which adds the dispatch to the kernel (in a tree with the
+  registered ops, the op's dispatcher);
 - the host time of 20 calls at (4, 64, 54, 54) queued behind a sleep
   kernel of about 50 ms, three times: a launch that made the host wait for
   the device would take about the sleep's length here;
 - the full-width x4 generator (seeded weights, both GAB_UP gammas 0.5)
   behind ``serving.Predictor``, a batch of four 54^2 images in float32,
   unfused, TF32 off: five readings of the mean over ten requests after
-  three warm-up ones, and their median.
+  three warm-up ones, and their median;
+- the full-width x4 WGAN-GP train step (``profile_train.make_trainer``)
+  at batch 16 in float32, unfused, TF32 off: three readings of the mean
+  over three steps after two warm-up ones, and their median.
 
 The request is host-bound, so its readings move with the host's load:
 compare trees only on one machine at one time, in alternating order.
@@ -41,16 +50,19 @@ def _gate_inputs(shape):
     return x, w
 
 
-def enqueue_idle_us(calls: int = 200) -> float:
-    """Host microseconds a call, the card idle at the start."""
+def enqueue_idle_us(calls: int = 200, fn=None) -> float:
+    """Host microseconds a call of ``fn`` (the kernel's wrapper by
+    default), the card idle at the start."""
+    fn = fn or spatial_gate.spatial_gate_cuda
     x, w = _gate_inputs((16, 64, 54, 54))
-    for _ in range(10):
-        spatial_gate.spatial_gate_cuda(x, w)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        spatial_gate.spatial_gate_cuda(x, w)
-    us = (time.perf_counter() - t0) / calls * 1e6
+    with torch.no_grad():
+        for _ in range(10):
+            fn(x, w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(x, w)
+        us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     return us
 
@@ -96,6 +108,25 @@ def request_ms(readings: int = 5, per_reading: int = 10) -> list:
     return out
 
 
+def step_ms(readings: int = 3, per_reading: int = 3) -> list:
+    from sradsgan_tpu_torch.tools.profile_train import (make_batch,
+                                                        make_trainer)
+
+    trainer = make_trainer("f32")
+    batch = make_batch()
+    for _ in range(2):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(readings):
+        t0 = time.perf_counter()
+        for _ in range(per_reading):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / per_reading * 1e3)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="request_probe")
     p.add_argument("label", help="names the tree in the printed line")
@@ -105,13 +136,18 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     idle = enqueue_idle_us()
+    entry = enqueue_idle_us(fn=spatial_gate.spatial_gate)
     behind, sleep_ms = enqueue_behind_sleep_ms()
     lat = request_ms()
-    print(f"{args.label}: K2 host enqueue {idle:.1f} us a call idle; 20 K2 "
+    step = step_ms()
+    print(f"{args.label}: K2 host enqueue {idle:.1f} us a call idle, "
+          f"{entry:.1f} us through spatial_gate.spatial_gate; 20 K2 "
           f"calls enqueued behind a {sleep_ms:.1f} ms sleep kernel in "
           f"{[round(v, 2) for v in behind]} ms of host time; request batch 4 "
           f"f32 unfused ms {[round(v, 3) for v in lat]} median "
-          f"{sorted(lat)[len(lat) // 2]:.3f}", flush=True)
+          f"{sorted(lat)[len(lat) // 2]:.3f}; step batch 16 f32 unfused ms "
+          f"{[round(v, 2) for v in step]} median "
+          f"{sorted(step)[len(step) // 2]:.2f}", flush=True)
     return 0
 
 

@@ -275,7 +275,7 @@ def test_list_models_lists_the_eight_ported_models(capsys):
     assert [line.split() for line in lines
             if not line.split()[0].endswith("_port")] == [
         ["amssrn", "pixel"], ["drcan", "GAN(wgan-gp)"], ["dssr", "pixel"],
-        ["edsr", "pixel"], ["ndsrgan", "GAN(lsgan)"],
+        ["edsr", "pixel"], ["hat", "pixel"], ["ndsrgan", "GAN(lsgan)"],
         ["sradsgan", "GAN(wgan-gp)"], ["sragan", "GAN(wgan-gp)"],
         ["srgan", "GAN(lsgan)"]]
 

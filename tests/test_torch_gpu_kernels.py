@@ -18,7 +18,10 @@ the strip-wise plain helpers; the gate forward also at strips of 1 to 5
 rows, beyond one wave of blocks, 20 times over for equal bits, inside a
 captured CUDA graph and on two streams at once.  SRAGAN, the second model
 on the kernels' path: its forward against the plain path and its forward's
-and train step's launches, unfused and fused.  Marked ``gpu``; they skip
+and train step's launches, unfused and fused.  The six registered ops
+(``torch.ops.sradsgan_tpu_torch.*``) at the main path's shapes: schema,
+fake implementation and traced dispatch (``torch.library.opcheck``), and
+one launch a call.  Marked ``gpu``; they skip
 where no CUDA device is present.  This file imports neither JAX nor the
 JAX package, so on a machine without them run it as
 
@@ -770,3 +773,43 @@ def test_sragan_train_step_launches_on_cuda(cuda, rab):
                       "position_attention_bwd": 1,
                       "rab_tail": tails if fused else 0}
     assert all(torch.isfinite(v) for v in losses.values())
+
+
+# The registered ops at the main path's shapes (the x4 step at batch 16):
+# the checks of torch.library.opcheck that apply to an op without autograd
+# of its own (the autograd.Functions own the gradients), then one call,
+# which must launch that kernel once.
+OPCHECK_TESTS = ("test_schema", "test_faketensor", "test_aot_dispatch_dynamic")
+MAIN_SHAPE = (16, 64, 54, 54)
+
+
+def _op_args(name, device):
+    x = _randn(MAIN_SHAPE, torch.float32, device)
+    w = _randn((1, 2, 7, 7), torch.float32, device, seed=1, std=0.3)
+    q, k = (_randn((16, 2916, 8), torch.float32, device, seed=s)
+            for s in (2, 3))
+    v = _randn((16, 2916, 64), torch.float32, device, seed=4)
+    if name == "avg_max_pool":
+        return (x,)
+    if name == "spatial_gate":
+        return x, w
+    if name == "spatial_gate_bwd":
+        return x, w, _randn(MAIN_SHAPE, torch.float32, device, seed=5)
+    if name == "position_attention":
+        return q, k, v, True
+    if name == "position_attention_bwd":
+        out, lse = sgam_flash.position_attention_cuda(q, k, v, with_lse=True)
+        return q, k, v, out, _randn(v.shape, torch.float32, device, 6), lse
+    return _rab_tail_args(MAIN_SHAPE, torch.float32, device)
+
+
+@pytest.mark.parametrize("name", sorted(_launches()))
+def test_registered_op(cuda, name):
+    op = getattr(torch.ops.sradsgan_tpu_torch, name).default
+    args = _op_args(name, cuda)
+    torch.library.opcheck(op, args, test_utils=OPCHECK_TESTS)
+    wrapper = _launches()[name]
+    before = wrapper.launches
+    op(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1

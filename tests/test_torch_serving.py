@@ -74,8 +74,9 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
     """Importing the port (the zoo's seven model modules too) and
     chip_smoke, and running the evaluation commands that the card's machine
     runs (no Pillow, no matplotlib there): ``validate-by-class`` and
-    ``train`` with its final table, both with LPIPS, and ``train --model
-    sragan``, on the synthetic set at tiny sizes."""
+    ``train`` with its final table, both with LPIPS, ``train --model
+    sragan``, on the synthetic set at tiny sizes, and ``export`` of a tiny
+    HAT read back by ``serving.load_exported``."""
     tiny = json.dumps({"base_filters": 16, "n_groups": 1, "n_blocks": 1})
     flags = ["--device", "cpu", "--data", "synthetic", "--scale", "2",
              "--crop-size", "32", "--lpips", "--save-dir", str(tmp_path),
@@ -86,7 +87,12 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
                 + flags,
                 ["train", "--model", "sragan", "--steps", "1",
                  "--batch-size", "2", "--no-bf16", "--no-final-eval"]
-                + flags[:-1] + [sragan]]
+                + flags[:-1] + [sragan],
+                ["export", "--model", "hat", "--device", "cpu", "--scale",
+                 "2", "--lr-size", "8", "--out", str(tmp_path / "hat.pt2"),
+                 "--model-kwargs", json.dumps(
+                     {"embed_dim": 12, "depths": [1], "num_heads": [2],
+                      "window_size": 4})]]
     code = ("import json, sys\n"
             "import sradsgan_tpu_torch, sradsgan_tpu_torch.serving\n"
             "import sradsgan_tpu_torch.cli, sradsgan_tpu_torch.models\n"
@@ -114,8 +120,13 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
             "import sradsgan_tpu_torch.models.sragan\n"
             "import sradsgan_tpu_torch.models.ndsrgan\n"
             "import sradsgan_tpu_torch.models.amssrn\n"
+            "import sradsgan_tpu_torch.models.hat\n"
             f"for argv in {commands!r}:\n"
             "    assert sradsgan_tpu_torch.cli.main(argv) == 0\n"
+            "import numpy as np\n"
+            "from sradsgan_tpu_torch.serving import load_exported\n"
+            f"run = load_exported({str(tmp_path / 'hat.pt2')!r})\n"
+            "assert run(np.zeros((1, 8, 8, 3))).shape == (1, 16, 16, 3)\n"
             "from sradsgan_tpu_torch.data.datasets import SyntheticDataset\n"
             "SyntheticDataset(2, 4, 16).load(0)\n"
             "print(json.dumps({m: m in sys.modules\n"

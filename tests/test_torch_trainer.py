@@ -165,8 +165,13 @@ def test_config_for_model_fills_the_sradsgan_recipe():
     assert models.get_spec("sradsgan").pixel_loss == "l1"
     with pytest.raises(AttributeError, match="unknown config field"):
         models.config_for_model("sradsgan", 4, **{"gan.nope": 1})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        models.config_for_model("hat", 4)
+    with pytest.raises(KeyError, match="unknown model 'nope'"):
+        models.config_for_model("nope", 4)
+    hat = models.config_for_model("hat", 4)
+    assert (hat.gan.weight_pixel, hat.gan.weight_content, hat.gan.weight_gan,
+            hat.optim.lr) == (1.0, 0.0, 0.0, 2e-4)
+    spec = models.get_spec("hat")
+    assert (spec.adversarial, spec.pixel_loss) == (False, "l1")
 
 
 def _fields(cfg):

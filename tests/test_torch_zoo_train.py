@@ -11,7 +11,9 @@ recipes at tiny widths:
 - NDSRGAN: lsgan with NDSRGAN's weights and 4x4 patch D;
 - DRCAN: WGAN-GP (penalty, lambda + 1, weight clip) with the plain D;
 - SRAGAN: WGAN-GP with the CBAM D (the kernels' ops in G and D) and
-  BatchNorm in G (gains 0.5).
+  BatchNorm in G (gains 0.5);
+- HAT: L1 only, one group of two HABs, window 4 (a shifted one on the 8x8
+  LR crops).
 
 Every parameter of G and D is compared, and G's BatchNorm running
 statistics (one train-mode forward a step, as in JAX).  The D's running
@@ -64,6 +66,8 @@ RECIPES = {
               dict(blocks=PLAIN_BLOCKS, kernel_size=3, use_attention=False)),
     "sragan": (dict(base_filters=16, n_groups=1, n_blocks=2),
                dict(blocks=CBAM_BLOCKS, kernel_size=3, use_attention=True)),
+    "hat": (dict(embed_dim=12, depths=(2,), num_heads=(2,), window_size=4),
+            None),
 }
 
 
@@ -255,8 +259,8 @@ def _fields(cfg):
     return out
 
 
-ZOO = ("amssrn", "drcan", "dssr", "edsr", "ndsrgan", "sradsgan", "sragan",
-       "srgan")
+ZOO = ("amssrn", "drcan", "dssr", "edsr", "hat", "ndsrgan", "sradsgan",
+       "sragan", "srgan")
 
 
 @pytest.mark.parametrize("scale", [2, 4])
@@ -283,8 +287,8 @@ def test_the_registry_lists_the_eight_ported_models():
     # its own for the worker's life)
     assert [m for m in models.available_models()
             if not m.endswith("_port")] == list(ZOO)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        models.config_for_model("hat", 4)
+    with pytest.raises(KeyError, match="unknown model"):
+        models.config_for_model("nope", 4)
     for name in ZOO:
         spec = models.get_spec(name)
         if spec.adversarial:
