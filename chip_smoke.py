@@ -104,7 +104,20 @@ Phases, each of which raises (exit code 1) on failure:
    same kernels on the same input), the kernel launches of one call of the
    loaded program (the registered ops: K1, K2 48 and K3 once unfused; K6
    48 and K3 once fused; none for HAT), and its latency against the eager
-   generator's over alternating turns.
+   generator's over alternating turns;
+12. GDP diffusion at the shipped width (``gdp_train_54_216``: UNet inner
+   64, mults (1, 2, 4, 8), 2 res blocks, attention at rate 8; seeded
+   fan-in weights): a 216^2 forward against the CPU plain path and in
+   bf16; a float32 step of the x0 loss at batch 2 of 64^2 against the
+   CPU's float64 step (the same t and noise; the loss within LOSS_TOL,
+   every gradient tensor within 1e-3 of its max|ref|, the CPU's float32 step
+   as the control); ``DiffusionTrainer``'s step at batch 4 of 216^2 in
+   float32 and mixed precision (ms, MP/s, peak GiB, TFLOP/s from the
+   hooks' FLOP count and its share of the peak); ms a denoising step and
+   the whole 1000-step chain of one 216^2 image in both; an 8-step chain
+   at 64^2 fed the same noise on the card and on the CPU;
+   ``diffusion-train``, ``diffusion-validate`` (plain and
+   ``--continuous``) and ``diffusion-sample`` at 64^2; no kernel launched.
 
 It prints the kernels' record as one JSON line before the last, and ends
 with ``{"ok": true, "device": {...}}``.
@@ -2140,6 +2153,321 @@ def phase_export(smi: str) -> dict:
     return out
 
 
+# phase_diffusion: the GDP UNet of the shipped config gdp_train_54_216 (inner
+# 64, mults (1, 2, 4, 8), 2 res blocks, attention at downsample rate 8)
+DIFFUSION_CONFIG = "gdp_train_54_216"
+DIFFUSION_STEP_GRAD_TOL = 1e-3  # each tensor, of its own max |ref|
+# float32 FMA outside the tensor cores (TF32 is off here): the rate the
+# float32 UNet's convs can reach at most
+PEAK_FP32_CUDA_CORES = 67e12
+
+
+def unet_flops(model, x: torch.Tensor, t: torch.Tensor) -> float:
+    """The multiply-adds (times two) of one UNet forward on ``x``, counted
+    from the shapes its convs, linears and attention products see (hooks on
+    a forward); GroupNorm, SiLU and the elementwise terms are left out."""
+    from sradsgan_tpu_torch.diffusion.unet import AttnBlock
+    total = [0.0]
+
+    def conv_or_linear(m, inputs, out):
+        fan_in = m.weight[0].numel()
+        total[0] += 2.0 * out.numel() * fan_in
+
+    def attention(m, inputs, out):
+        b, c, h, w = inputs[0].shape
+        total[0] += 2 * 2.0 * b * (h * w) ** 2 * c  # q k^T and attn v
+
+    hooks = [m.register_forward_hook(
+        attention if isinstance(m, AttnBlock) else conv_or_linear)
+        for m in model.modules()
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear, AttnBlock))]
+    try:
+        with torch.no_grad():
+            model(x, t)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def _unet_step(model, sched, batch, t, noise):
+    """The x0-prediction loss and its parameter gradients, on the model's
+    device and dtype."""
+    from sradsgan_tpu_torch.diffusion.gaussian import p_losses_given
+    p = next(model.parameters())
+    x0, cond, noise = (v.to(p.device, p.dtype) for v in
+                       (batch["HR"], batch["SR"], noise))
+    model.zero_grad(set_to_none=True)
+    loss = p_losses_given(model, sched, x0, cond, t.to(p.device), noise)
+    loss.backward()
+    return float(loss.detach()), {n: q.grad.detach().double().cpu()
+                         for n, q in model.named_parameters()}
+
+
+def phase_diffusion(smi: str) -> dict:
+    """GDP conditional diffusion at the shipped width (DIFFUSION_CONFIG;
+    seeded fan-in weights, so that no conv is zero): (a) one 216^2 forward,
+    card float32 against the CPU plain path, and a bf16 forward; (b) one
+    float32 step of the x0 loss at batch 2 of 64^2 against the CPU's in
+    float64, given the same t and noise, the CPU's float32 step as the
+    control; (c) the trainer's step at batch 4 of 216^2 in float32 and
+    mixed precision; (d) ms a denoising step of one 216^2 image in both,
+    the whole 1000-step chain in both, and an 8-step chain at 64^2 fed the
+    same noise on the card and on the CPU; (e) the three diffusion
+    commands at 64^2; (f) no kernel of K1-K6 launched throughout."""
+    from sradsgan_tpu_torch.diffusion.config import (
+        load_gdp_config, trainer_kwargs_from_config)
+    from sradsgan_tpu_torch.diffusion.gaussian import (Schedule,
+                                                       p_sample_loop,
+                                                       p_sample_step)
+    from sradsgan_tpu_torch.diffusion.trainer import DiffusionTrainer
+    from sradsgan_tpu_torch.diffusion.unet import UNet
+
+    t_start = time.perf_counter()
+    kwargs = trainer_kwargs_from_config(load_gdp_config(DIFFUSION_CONFIG))
+    unet_kwargs = kwargs["unet_kwargs"]
+    out = {"config": DIFFUSION_CONFIG, "card": smi}
+    rng = np.random.default_rng(8)
+    reset_launches()
+
+    # (a) the forward at 216^2
+    model = UNet(**unet_kwargs, seed=0)
+    fan_in_init(model, seed=6)
+    model.eval()
+    out["params_m"] = sum(p.numel() for p in model.parameters()) / 1e6
+    x = torch.from_numpy(rng.normal(0, 1, (1, 6, 216, 216)).astype(
+        np.float32))
+    t = torch.tensor([500])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = model(x, t)
+    out["cpu_forward_s"] = time.perf_counter() - t0
+    card = copy.deepcopy(model).cuda()
+    with torch.no_grad():
+        got = card(x.cuda(), t.cuda())
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got_bf16 = card(x.cuda(), t.cuda())
+    flops = unet_flops(card, x.cuda(), t.cuda())
+    out["gflop_forward_216"] = flops / 1e9
+    scale = float(ref.abs().max())
+    err = float((got.cpu() - ref).abs().max())
+    bf16_err = float((got_bf16.float().cpu() - ref).abs().max()) / scale
+    if not torch.isfinite(got_bf16).all():
+        fail("diffusion: the bf16 forward is not finite")
+    out["forward"] = {"max_abs_err": err, "bound": SLICE_TOL * scale,
+                      "max_ref": scale, "bf16_rel_err_vs_f32": bf16_err}
+    print(f"diffusion UNet {DIFFUSION_CONFIG} ({out['params_m']:.2f} M "
+          f"parameters, {flops / 1e9:.1f} GFLOP a 216^2 forward by the "
+          f"hooks' count): card f32 vs CPU plain path max|d| {err:.3e} <= "
+          f"{SLICE_TOL * scale:.3e}; bf16 vs f32 {bf16_err:.3e} of max|ref| "
+          f"[{smi}]")
+    if not err <= SLICE_TOL * scale:
+        fail("diffusion: the card's 216^2 forward disagrees with the CPU")
+    del card, got, got_bf16, ref
+    torch.cuda.empty_cache()
+
+    # (b) one float32 step against float64, batch 2 of 64^2
+    sched = Schedule.create(kwargs["schedule"], kwargs["n_timestep"],
+                            kwargs["linear_start"], kwargs["linear_end"])
+    batch = {k: torch.from_numpy(rng.uniform(-1, 1, (2, 3, 64, 64)).astype(
+        np.float32)) for k in ("HR", "SR")}
+    t = torch.tensor([37, 811])
+    noise = torch.from_numpy(rng.normal(0, 1, (2, 3, 64, 64)).astype(
+        np.float32))
+    model.train()
+    ref_loss, ref_grads = _unet_step(copy.deepcopy(model).double(), sched,
+                                     batch, t, noise)
+    readings = {}
+    for where, net in (("card", copy.deepcopy(model).cuda()),
+                       ("cpu", model)):
+        loss, grads = _unet_step(net, sched, batch, t, noise)
+        errs = {n: float((g - ref_grads[n]).abs().max()
+                         / ref_grads[n].abs().max()) for n, g in grads.items()}
+        worst = max(errs, key=errs.get)
+        readings[where] = {"loss": loss, "loss_err": abs(loss - ref_loss),
+                           "worst_grad": worst,
+                           "worst_grad_err": errs[worst]}
+        del net
+    out["step_check"] = {"ref_loss": ref_loss, **readings,
+                         "grad_tol": DIFFUSION_STEP_GRAD_TOL}
+    print(f"diffusion f32 step (batch 2 x 64^2) vs float64: loss "
+          f"{ref_loss:.6f}; card loss err {readings['card']['loss_err']:.3e},"
+          f" worst grad {readings['card']['worst_grad_err']:.3e} "
+          f"({readings['card']['worst_grad']}); CPU f32 control loss err "
+          f"{readings['cpu']['loss_err']:.3e}, worst grad "
+          f"{readings['cpu']['worst_grad_err']:.3e} "
+          f"({readings['cpu']['worst_grad']}) [{smi}]")
+    for where, r in readings.items():
+        if not (r["loss_err"] <= LOSS_TOL * max(abs(ref_loss), 0.01)
+                and r["worst_grad_err"] <= DIFFUSION_STEP_GRAD_TOL):
+            fail(f"diffusion: the {where} float32 step misses its bars: {r}")
+    torch.cuda.empty_cache()
+
+    # (c) the trainer's step at batch 4 of 216^2
+    data_cfg = DataConfig(synthetic=True, crop_size=216, test_crop_size=216,
+                          batch_size=4)
+    step_batch = {k: torch.from_numpy(rng.uniform(-1, 1, (4, 3, 216, 216))
+                                      .astype(np.float32)).cuda()
+                  for k in ("HR", "SR")}  # on the card, as the feed hands it
+    mpix = 4 * 216 * 216 / 1e6
+    step_flops = 3 * 4 * flops
+    peaks = {"f32": PEAK_FP32_CUDA_CORES,
+             "bf16": PEAK_FLOPS[torch.bfloat16]}
+    out["train_step"] = {"gflop": step_flops / 1e9}
+    with tempfile.TemporaryDirectory() as save_dir:
+        for precision in ("f32", "bf16"):
+            trainer = DiffusionTrainer(
+                data_cfg, kwargs["scale"], save_dir=save_dir,
+                unet_kwargs=unet_kwargs, bf16=precision == "bf16",
+                device="cuda")
+            fan_in_init(trainer.unet, seed=6)
+            gen = torch.Generator("cuda").manual_seed(1)
+            trainer.train_step(step_batch, gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = 3
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                loss = trainer.train_step(step_batch, gen)
+            loss = float(loss)  # waits
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            row = {"ms_per_step": ms, "mp_per_s": mpix / (ms / 1e3),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "tflop_per_s": step_flops / (ms / 1e3) / 1e12,
+                   "loss": loss}
+            row["share_of_peak"] = row["tflop_per_s"] * 1e12 / peaks[
+                precision]
+            # float32 also against the TF32 tensor-core peak (495 TFLOP/s)
+            tf32 = (f", {100 * row['tflop_per_s'] / 495:.2f} % of TF32's 495"
+                    if precision == "f32" else "")
+            out["train_step"][precision] = row
+            print(f"diffusion train step batch 4 x 216^2 {precision}: "
+                  f"{ms:.2f} ms/step, {row['mp_per_s']:.3f} MP/s of HR, "
+                  f"peak {row['peak_gib']:.2f} GiB, {row['tflop_per_s']:.1f}"
+                  f" TFLOP/s = {100 * row['share_of_peak']:.1f} % of "
+                  f"{peaks[precision] / 1e12:.0f} TFLOP/s{tf32}; loss "
+                  f"{loss:.5f} [{smi}]")
+            if not np.isfinite(loss):
+                fail(f"diffusion {precision} step loss is not finite")
+            del trainer
+            torch.cuda.empty_cache()
+
+    # (d) sampling: one 216^2 image
+    card = copy.deepcopy(model).cuda().eval()
+    cond = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 216, 216)).astype(
+        np.float32)).cuda()
+    img = torch.randn(cond.shape, device="cuda")
+    step_noise = torch.randn(cond.shape, device="cuda")
+    out["sampling"] = {}
+    for precision in ("f32", "bf16"):
+        def denoise(xx, tt, bf16=precision == "bf16"):
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+                return card(xx, tt)
+        with torch.no_grad():
+            for _ in range(2):
+                p_sample_step(denoise, sched, img, cond, 500, step_noise)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for step in range(20):
+                p_sample_step(denoise, sched, img, cond, 999 - step,
+                              step_noise)
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 20 * 1e3
+        gen = torch.Generator("cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        sample = p_sample_loop(denoise, sched, cond, gen)
+        sample_np = sample.cpu().numpy()  # waits
+        chain_s = time.perf_counter() - t0
+        if not np.isfinite(sample_np).all() or sample_np.shape != (
+                1, 3, 216, 216):
+            fail(f"diffusion {precision} sample {sample_np.shape} is not "
+                 "finite")
+        out["sampling"][precision] = {
+            "ms_per_step": step_ms, "chain_s": chain_s,
+            "steps": sched.num_timesteps,
+            "tflop_per_s": flops / (step_ms / 1e3) / 1e12}
+        print(f"diffusion sampling 1 x 216^2 {precision}: {step_ms:.2f} ms "
+              f"a denoising step ({flops / (step_ms / 1e3) / 1e12:.1f} "
+              f"TFLOP/s), the whole {sched.num_timesteps}-step chain "
+              f"{chain_s:.2f} s [{smi}]")
+    del card
+    torch.cuda.empty_cache()
+    short = Schedule.create(kwargs["schedule"], 8, kwargs["linear_start"],
+                            kwargs["linear_end"])
+    cond64 = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 64, 64)).astype(
+        np.float32))
+    model.eval()
+    ref = p_sample_loop(model, short, cond64,
+                        torch.Generator().manual_seed(3))
+    got = p_sample_loop(copy.deepcopy(model).cuda(), short, cond64.cuda(),
+                        torch.Generator().manual_seed(3))
+    scale = float(ref.abs().max())
+    err = float((got.cpu() - ref).abs().max())
+    out["chain_check"] = {"steps": 8, "max_abs_err": err,
+                          "bound": SLICE_TOL * scale}
+    print(f"diffusion 8-step chain 1 x 64^2, the same noise: card vs CPU "
+          f"max|d| {err:.3e} <= {SLICE_TOL * scale:.3e} [{smi}]")
+    if not err <= SLICE_TOL * scale:
+        fail("diffusion: the card's 8-step chain disagrees with the CPU's")
+    launches = read_launches()
+
+    # (e) the three commands at 64^2
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--device", "cuda", "--data", "synthetic", "--scale", "4",
+                  "--crop-size", "64", "--save-dir", tmp]
+        lines, ran = _cli_run(["diffusion-train", "--gdp-config",
+                               DIFFUSION_CONFIG, "--n-iter", "3",
+                               "--batch-size", "4"] + common, smi)
+        launches = {k: v + ran[k] for k, v in launches.items()}
+        trained = json.loads(lines[-1])
+        if not (np.isfinite(trained["final_loss"])
+                and os.path.exists(trained["ckpt"])):
+            fail(f"diffusion-train: {trained}")
+        out["cli"] = {"train_loss": trained["final_loss"]}
+        for mode in ("plain", "continuous"):
+            result_dir = os.path.join(tmp, f"val_{mode}")
+            argv = ["diffusion-validate", "--ckpt", trained["ckpt"],
+                    "--timesteps", "10", "--max-images", "1",
+                    "--result-dir", result_dir] + common
+            lines, ran = _cli_run(
+                argv + (["--continuous"] if mode == "continuous" else []),
+                smi)
+            launches = {k: v + ran[k] for k, v in launches.items()}
+            val = json.loads(lines[-1])
+            val.pop("result_dir")
+            if len(val) != 10 or not np.isfinite(list(val.values())).all():
+                fail(f"diffusion-validate {mode}: {val}")
+            out["cli"][f"validate_{mode}"] = val
+        lr = (rng.random((16, 16, 3)) * 255).astype(np.uint8)
+        np.save(os.path.join(tmp, "lr.npy"), lr)
+        lines, ran = _cli_run(["diffusion-sample", "--ckpt", trained["ckpt"],
+                               "--timesteps", "10", "--image",
+                               os.path.join(tmp, "lr.npy"), "--out-dir",
+                               os.path.join(tmp, "sample")] + common, smi)
+        launches = {k: v + ran[k] for k, v in launches.items()}
+        path = json.loads(lines[-1])["sr"]
+        if path.endswith(".npy"):
+            sr = np.load(path)
+            if sr.shape != (64, 64, 3) or not np.isfinite(sr).all():
+                fail(f"diffusion-sample wrote {sr.shape}")
+        elif not os.path.exists(path):
+            fail(f"diffusion-sample wrote nothing at {path}")
+        out["cli"]["sample"] = os.path.basename(path)
+    print(f"cli diffusion-train (3 steps, {DIFFUSION_CONFIG} at 64^2), "
+          f"diffusion-validate (10 steps, plain and continuous), "
+          f"diffusion-sample (10 steps, 16^2 -> 64^2) returned 0: "
+          f"{out['cli']}")
+
+    # (f) no kernel on this path
+    out["launches"] = launches
+    if any(launches.values()):
+        fail(f"the diffusion path launched kernels: {launches}")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"diffusion phase: {out['seconds']:.1f} s, kernel launches "
+          f"{launches}")
+    return out
+
+
 def main() -> int:
     # Full float32 in the plain versions too: cuDNN would run the float32
     # convs in TF32 (about three decimal digits) by default.
@@ -2163,6 +2491,7 @@ def main() -> int:
     zoo = phase_model_zoo(smi)
     hat = phase_hat(smi)
     exported = phase_export(smi)
+    diffusion = phase_diffusion(smi)
     paths = {"serving": serving["launches"],
              "serving_fused": serving["fused_launches"],
              **{f"train_{k[len('launches_'):]}": v
@@ -2192,7 +2521,8 @@ def main() -> int:
                                     if k != "launches"},
                       "eval_protocol": eval_protocol, "model_zoo": zoo,
                       "hat": hat, "export": exported,
-                      "strips": plans, "card": smi}))
+                      "diffusion": diffusion, "strips": plans,
+                      "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

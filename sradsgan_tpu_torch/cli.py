@@ -12,6 +12,12 @@
     python -m sradsgan_tpu_torch.cli export --model sradsgan --scale 4 \
         --lr-size 54 --out m.pt2 [--ckpt ...] [--device cpu]
     python -m sradsgan_tpu_torch.cli list-models
+    python -m sradsgan_tpu_torch.cli diffusion-train \
+        --gdp-config gdp_train_54_216 --data synthetic --n-iter 1000
+    python -m sradsgan_tpu_torch.cli diffusion-validate \
+        --gdp-config gdp_train_54_216 --ckpt Result/GDP/gdp_ckpt_latest.pt
+    python -m sradsgan_tpu_torch.cli diffusion-sample --scale 4 \
+        --image scene.png --ckpt Result/GDP/gdp_ckpt_latest.pt
 
 Each command takes the flags of its ``python -m sradsgan_tpu.cli``
 counterpart, so a JAX command line parses unchanged, plus ``--device``
@@ -49,6 +55,24 @@ batch 1 of ``--lr-size``^2 (``serving.export_model``; the weights inside,
 float32, on ``--device``), which ``serving.load_exported`` reads back.
 Without the LPIPS trunk's weights (``SRADSGAN_TPU_ALEXNET_NPZ``)
 ``--lpips`` says that it reports the uncalibrated ``lpips*``.
+
+The ``diffusion-*`` commands drive ``diffusion.trainer.DiffusionTrainer``
+(GDP's conditional DDPM), built from ``--gdp-config`` (a bundled GDP config
+by name, or a path; ``--unet-kwargs`` then replaces its UNet arguments
+whole, as in JAX) or from ``--scale``, ``--timesteps`` and
+``--unet-kwargs``; the data flags are the common ones.  ``--weights``
+starts the UNet from the JAX UNet's params as ``.npz``
+(``tools/from_jax.py:unet_state_dict``); ``--ckpt`` (``diffusion-sample``,
+``diffusion-validate``) restores a checkpoint ``diffusion-train`` wrote,
+weights, Adam state and step; not both.  ``diffusion-train`` runs
+``--n-iter`` steps and saves ``<save_dir>/GDP/gdp_ckpt_latest.pt``;
+``diffusion-validate`` samples the first ``--max-images`` test images and
+prints the metrics against the bicubic twin, with the dumps under
+``--result-dir`` (``--continuous``: the reverse chain's snapshots too);
+``diffusion-sample`` reads one image (a png or tif through Pillow, or an
+HWC uint8 ``.npy``), upsamples it bicubically by the scale (PIL's 8-bit
+resize, ``ops/resize.py``), samples the SR and writes it as a png, or as
+``.npy`` where Pillow does not import.
 """
 
 from __future__ import annotations
@@ -253,6 +277,100 @@ def cmd_export(args) -> int:
     return 0
 
 
+def _build_diffusion_trainer(args):
+    """The ``DiffusionTrainer`` of the diffusion flags, holding ``--ckpt``
+    or ``--weights`` where given."""
+    from sradsgan_tpu_torch.diffusion.trainer import DiffusionTrainer
+
+    ckpt = getattr(args, "ckpt", None)
+    if ckpt and args.weights:
+        raise SystemExit(f"{args.cmd}: pass --ckpt (a checkpoint of "
+                         "diffusion-train) or --weights (JAX UNet params), "
+                         "not both")
+    cfg = _build_cfg(args)
+    unet_kwargs = json.loads(args.unet_kwargs) if args.unet_kwargs else None
+    common = dict(save_dir=os.path.join(args.save_dir, "GDP"),
+                  bf16=not args.no_bf16, device=args.device)
+    if args.gdp_config:
+        trainer = DiffusionTrainer.from_gdp_config(
+            args.gdp_config, cfg.data, **common,
+            **({"unet_kwargs": unet_kwargs} if unet_kwargs else {}))
+    else:
+        trainer = DiffusionTrainer(cfg.data, args.scale,
+                                   n_timestep=args.timesteps,
+                                   unet_kwargs=unet_kwargs, **common)
+    if ckpt:
+        trainer.load_checkpoint(ckpt)
+    elif args.weights:
+        from sradsgan_tpu_torch.tools.from_jax import load_npz, unet_state_dict
+        unet = trainer.unet
+        trainer.unet.load_state_dict(unet_state_dict(
+            load_npz(args.weights), unet.channel_mults, unet.attn_res,
+            unet.res_blocks, unet.resblock_updown))
+    return trainer
+
+
+def cmd_diffusion_train(args) -> int:
+    trainer = _build_diffusion_trainer(args)
+    loss = trainer.train(args.n_iter, val_freq=args.val_freq)
+    path = trainer.save_checkpoint()
+    print(json.dumps({"final_loss": loss, "ckpt": path}))
+    return 0
+
+
+def cmd_diffusion_validate(args) -> int:
+    trainer = _build_diffusion_trainer(args)
+    val = trainer.validate(max_images=args.max_images,
+                           result_dir=args.result_dir,
+                           continuous=args.continuous)
+    print(json.dumps({"result_dir": args.result_dir, **val}))
+    return 0
+
+
+def _read_rgb_u8(path: str):
+    """An image as HWC uint8 RGB: an ``.npy`` of HWC uint8 as it is,
+    anything else through Pillow."""
+    import numpy as np
+
+    if path.endswith(".npy"):
+        arr = np.load(path)
+        if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
+            raise SystemExit(f"{path}: want an HWC uint8 RGB array, got "
+                             f"{arr.dtype} {arr.shape}")
+        return arr
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def cmd_diffusion_sample(args) -> int:
+    import numpy as np
+    import torch
+
+    from sradsgan_tpu_torch.ops.resize import resize_uint8
+    from sradsgan_tpu_torch.utils.plotting import save_image
+
+    trainer = _build_diffusion_trainer(args)
+    scale = trainer.scale  # --gdp-config's where given
+    u8 = _read_rgb_u8(args.image)
+    h, w = u8.shape[:2]
+    bc = resize_uint8(torch.from_numpy(u8.astype(np.float32)), h * scale,
+                      w * scale, "bicubic")
+    sr = trainer.super_resolution(bc.numpy()[None] / 255.0)[0]
+    name = os.path.splitext(os.path.basename(args.image))[0]
+    out = os.path.join(args.out_dir, f"GDP_SR_{name}_x{scale}.png")
+    try:
+        save_image(sr, out)
+    except ImportError:
+        out = out[:-len(".png")] + ".npy"
+        os.makedirs(args.out_dir, exist_ok=True)
+        np.save(out, np.clip(sr, 0, 1))
+        print(f"diffusion-sample: Pillow does not import here; the SR is "
+              f"written as float [0, 1] HWC to {out}", file=sys.stderr)
+    print(json.dumps({"sr": out}))
+    return 0
+
+
 def cmd_list_models(_args) -> int:
     from sradsgan_tpu_torch.models import available_models, get_spec
 
@@ -329,6 +447,48 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="exported_model.pt2")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_export)
+
+    def add_diffusion(p):
+        p.add_argument("--timesteps", type=int, default=1000)
+        p.add_argument("--gdp-config",
+                       help="bundled or custom GDP JSON config name/path "
+                            "(e.g. gdp_train_54_216)")
+        p.add_argument("--unet-kwargs", default=None,
+                       help='JSON UNet-constructor overrides, e.g. '
+                            '\'{"inner_channel": 32}\'')
+        p.add_argument("--weights",
+                       help="the JAX UNet's params as .npz "
+                            "(tools/from_jax.py)")
+        p.add_argument("--device", default="cuda")
+
+    p = sub.add_parser("diffusion-train",
+                       help="GDP-style conditional diffusion SR training")
+    _add_common(p)
+    add_diffusion(p)
+    p.add_argument("--n-iter", type=int, default=1000000)
+    p.add_argument("--val-freq", type=int, default=0)
+    p.set_defaults(fn=cmd_diffusion_train)
+
+    p = sub.add_parser("diffusion-sample",
+                       help="sample SR from a trained diffusion model")
+    _add_common(p)
+    add_diffusion(p)
+    p.add_argument("--image", required=True)
+    p.add_argument("--ckpt", help="a checkpoint diffusion-train wrote")
+    p.add_argument("--out-dir", default="Result/GDP/samples")
+    p.set_defaults(fn=cmd_diffusion_sample)
+
+    p = sub.add_parser("diffusion-validate",
+                       help="diffusion eval sweep with tif/panel dumps "
+                            "(reference sr_mfe.py -p val)")
+    _add_common(p)
+    add_diffusion(p)
+    p.add_argument("--ckpt", help="a checkpoint diffusion-train wrote")
+    p.add_argument("--max-images", type=int, default=4)
+    p.add_argument("--result-dir", default="Result/GDP/val")
+    p.add_argument("--continuous", action="store_true",
+                   help="continuous sampling: save reverse-chain grids")
+    p.set_defaults(fn=cmd_diffusion_validate)
 
     p = sub.add_parser("list-models")
     p.set_defaults(fn=cmd_list_models)

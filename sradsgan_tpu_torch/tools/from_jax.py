@@ -7,7 +7,8 @@ One function per network, each the inverse of its reader in
 :func:`generator_state_dict` dispatches on the model's name to
 ``{sradsgan,edsr,srgan,drcan,dssr,sragan,ndsrgan,amssrn,hat}_state_dict``;
 :func:`discriminator_state_dict` covers the patch discriminators (the
-inverse of ``import_patch_discriminator``), :func:`vgg19_state_dict` the
+inverse of ``import_patch_discriminator``), :func:`unet_state_dict` the
+diffusion UNet, :func:`vgg19_state_dict` the
 VGG19 content features (the JAX param tree, or the ``.npz`` of
 ``SRADSGAN_TPU_VGG19_NPZ`` read with :func:`load_npz`), and
 :func:`lpips_state_dict` LPIPS (its trunk, as the ``.npz`` of
@@ -417,6 +418,104 @@ def generator_state_dict(model: str,
         raise KeyError(f"no weight bridge for model {model!r}; have "
                        f"{sorted(GENERATOR_BRIDGES)}") from None
     return bridge(variables)
+
+
+def unet_state_dict(params: Tree,
+                    channel_mults: Sequence[int] = (1, 2, 4, 8),
+                    attn_res: Sequence[int] = (8,), res_blocks: int = 2,
+                    resblock_updown: bool = True
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX diffusion ``UNet`` params (or ``{"params": ...}``) -> the port's
+    ``diffusion.unet.UNet`` state dict, for the UNet of these structural
+    arguments (the JAX defaults, those of every bundled GDP config).  The
+    walk follows the Flax auto-names in creation order: ``Dense_0/1`` the
+    time MLP, ``Conv_i`` the input conv, the stride-2 and upsample convs
+    (``resblock_updown=False``) and the final conv, ``ResBlock_i`` down,
+    middle and up, the named ``attn_down_{level}_{i}``, ``attn_mid`` and
+    ``attn_up_{level}_{i}``, and the final ``GroupNorm_0``.  Every leaf is
+    consumed exactly once; a leaf left over raises."""
+    flat = _flatten(_params(params))
+    sd = _StateDict()
+
+    def take(path: str) -> np.ndarray:
+        return flat.pop(path)
+
+    def conv(name: str, node: str) -> None:
+        sd[f"{name}.weight"] = _oihw(take(f"{node}/kernel"))
+        sd[f"{name}.bias"] = _f32(take(f"{node}/bias"))
+
+    def linear(name: str, node: str) -> None:
+        sd[f"{name}.weight"] = _f32(take(f"{node}/kernel")).T
+        sd[f"{name}.bias"] = _f32(take(f"{node}/bias"))
+
+    def norm(name: str, node: str) -> None:
+        sd[f"{name}.weight"] = _f32(take(f"{node}/scale"))
+        sd[f"{name}.bias"] = _f32(take(f"{node}/bias"))
+
+    counters = {"Conv": 0, "ResBlock": 0}
+
+    def next_name(kind: str) -> str:
+        i = counters[kind]
+        counters[kind] += 1
+        return f"{kind}_{i}"
+
+    def res(name: str) -> None:
+        node = next_name("ResBlock")
+        norm(f"{name}.in_norm", f"{node}/GroupNorm_0")
+        conv(f"{name}.in_conv", f"{node}/Conv_0")
+        linear(f"{name}.emb_proj", f"{node}/Dense_0")
+        norm(f"{name}.out_norm", f"{node}/GroupNorm_1")
+        conv(f"{name}.out_conv", f"{node}/Conv_1")
+        if f"{node}/Conv_2/kernel" in flat:
+            conv(f"{name}.skip", f"{node}/Conv_2")
+
+    def attn(name: str, node: str) -> None:
+        norm(f"{name}.norm", f"{node}/GroupNorm_0")
+        conv(f"{name}.qkv", f"{node}/Conv_0")
+        conv(f"{name}.proj_out", f"{node}/Conv_1")
+
+    def attn_at(level: int) -> bool:
+        return 2 ** level in tuple(attn_res)
+
+    linear("time_embed.0", "Dense_0")
+    linear("time_embed.2", "Dense_1")
+    conv("input_blocks.0.0", next_name("Conv"))
+    k, last = 1, len(channel_mults) - 1
+    for level in range(len(channel_mults)):
+        for i in range(res_blocks):
+            res(f"input_blocks.{k}.0")
+            if attn_at(level):
+                attn(f"input_blocks.{k}.1", f"attn_down_{level}_{i}")
+            k += 1
+        if level != last:
+            if resblock_updown:
+                res(f"input_blocks.{k}.0")
+            else:
+                conv(f"input_blocks.{k}.0", next_name("Conv"))
+            k += 1
+    res("middle_block.0")
+    attn("middle_block.1", "attn_mid")
+    res("middle_block.2")
+    k = 0
+    for level in reversed(range(len(channel_mults))):
+        for i in range(res_blocks + 1):
+            res(f"output_blocks.{k}.0")
+            j = 1
+            if attn_at(level):
+                attn(f"output_blocks.{k}.1", f"attn_up_{level}_{i}")
+                j = 2
+            if level != 0 and i == res_blocks:
+                if resblock_updown:
+                    res(f"output_blocks.{k}.{j}")
+                else:
+                    conv(f"output_blocks.{k}.{j}.conv", next_name("Conv"))
+            k += 1
+    norm("out.0", "GroupNorm_0")
+    conv("out.2", next_name("Conv"))
+    if flat:
+        raise ValueError(f"unet_state_dict: JAX leaves not mapped (check "
+                         f"the structural arguments): {sorted(flat)[:8]}")
+    return sd.tensors()
 
 
 def _as_tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

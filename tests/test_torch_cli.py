@@ -12,10 +12,16 @@ latter also the CSV; ``train`` prints the by-class table after training,
 with LPIPS where ``--lpips`` asks; ``chain-train`` hands each scale the
 previous one's checkpoint.  The other models of the zoo: ``list-models``
 lists the eight, ``infer --weights`` maps a JAX SRAGAN's variables through
-the bridges' dispatcher, ``validate-by-class`` runs EDSR.
+the bridges' dispatcher, ``validate-by-class`` runs EDSR.  The diffusion
+commands: ``diffusion-train`` writes the checkpoint that
+``diffusion-validate`` and ``diffusion-sample`` read, ``--gdp-config`` sets
+the scale and the schedule, ``--weights`` carries a JAX UNet across, and
+``--ckpt`` with ``--weights`` is refused.
 """
 
 import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -328,3 +334,157 @@ def test_validate_by_class_runs_a_pixel_model(tmp_path, capsys):
         device="cpu")
     save_by_class_csv(table, str(tmp_path / "direct.csv"))
     assert csv.read_bytes() == (tmp_path / "direct.csv").read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# the diffusion commands, at tiny widths
+
+UNET_TINY = {"inner_channel": 32, "channel_mults": [1, 2], "res_blocks": 1}
+DIFFUSION = ["--device", "cpu", "--data", "synthetic", "--scale",
+             str(SCALE), "--crop-size", "32", "--timesteps", "8",
+             "--no-bf16", "--unet-kwargs", json.dumps(UNET_TINY)]
+
+
+def _diffusion_trainer(run, **kwargs):
+    from sradsgan_tpu_torch.diffusion.trainer import DiffusionTrainer
+
+    cfg = DataConfig(synthetic=True, crop_size=32, test_crop_size=32)
+    return DiffusionTrainer(cfg, SCALE, save_dir=str(run / "GDP"),
+                            n_timestep=8, bf16=False,
+                            unet_kwargs=UNET_TINY, device="cpu", **kwargs)
+
+
+def _bicubic01(u8):
+    from sradsgan_tpu_torch.ops.resize import resize_uint8
+
+    h, w = u8.shape[:2]
+    return resize_uint8(torch.from_numpy(u8.astype(np.float32)), h * SCALE,
+                        w * SCALE, "bicubic").numpy()[None] / 255.0
+
+
+def test_diffusion_train_writes_what_validate_and_sample_read(tmp_path,
+                                                              capsys):
+    run = tmp_path / "run"
+    assert cli.main(["diffusion-train", "--n-iter", "2", "--batch-size",
+                     "2", "--save-dir", str(run)] + DIFFUSION) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(out["final_loss"])
+    ckpt = out["ckpt"]
+    assert ckpt == str(run / "GDP" / "gdp_ckpt_latest.pt")
+    assert torch.load(ckpt, weights_only=True)["step"] == 2
+
+    result_dir = tmp_path / "val"
+    assert cli.main(["diffusion-validate", "--ckpt", ckpt, "--max-images",
+                     "1", "--result-dir", str(result_dir), "--continuous",
+                     "--save-dir", str(run)] + DIFFUSION) == 0
+    val = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert val.pop("result_dir") == str(result_dir)
+    assert len(val) == 10 and np.isfinite(list(val.values())).all()
+    files = os.listdir(result_dir)
+    assert {"2_1_plot.png", "2_1_sr_process.png"} <= set(files), files
+
+    image, lr01 = _image(tmp_path)
+    assert cli.main(["diffusion-sample", "--ckpt", ckpt, "--image", image,
+                     "--out-dir", str(tmp_path / "s"), "--save-dir",
+                     str(run)] + DIFFUSION) == 0
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(line)["sr"].endswith("GDP_SR_scene_x2.png")
+    got = _sr_png(line)
+    trainer = _diffusion_trainer(run)
+    trainer.load_checkpoint(ckpt)
+    want = trainer.super_resolution(
+        _bicubic01(np.round(lr01 * 255).astype(np.uint8)))[0]
+    np.testing.assert_array_equal(got, _truncated(want))
+
+
+def test_diffusion_sample_carries_a_jax_unet_across(tmp_path, capsys):
+    """``--weights``: the JAX UNet's params as ``.npz`` through
+    ``unet_state_dict``; the SR is the bridged trainer's own sample, on the
+    port's bicubic re-upsample, which lies within one level of PIL's (the
+    JAX command's)."""
+    import jax
+    import jax.numpy as jnp
+
+    from sradsgan_tpu.diffusion.unet import UNet as JaxUNet
+    from sradsgan_tpu_torch.tools.from_jax import unet_state_dict
+    from test_torch_diffusion import random_params
+
+    kwargs = {**UNET_TINY, "channel_mults": (1, 2)}
+    shapes = jax.eval_shape(JaxUNet(**kwargs).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 16, 16, 6)),
+                            jnp.zeros((1,), jnp.int32))["params"]
+    params = random_params(shapes, 4)
+    npz = tmp_path / "unet.npz"
+    save_npz(str(npz), params)
+    image, lr01 = _image(tmp_path, seed=3)
+    assert cli.main(["diffusion-sample", "--weights", str(npz), "--image",
+                     image, "--out-dir", str(tmp_path / "s"), "--save-dir",
+                     str(tmp_path / "run")] + DIFFUSION) == 0
+    got = _sr_png(capsys.readouterr().out.strip().splitlines()[-1])
+    trainer = _diffusion_trainer(tmp_path / "run")
+    trainer.unet.load_state_dict(unet_state_dict(
+        params, channel_mults=(1, 2), res_blocks=1))
+    u8 = np.round(lr01 * 255).astype(np.uint8)
+    bc01 = _bicubic01(u8)
+    pil = Image.fromarray(u8).resize((u8.shape[1] * SCALE,
+                                      u8.shape[0] * SCALE), Image.BICUBIC)
+    assert np.abs(bc01[0] * 255 - np.asarray(pil)).max() <= 1.0 + 1e-4
+    want = trainer.super_resolution(bc01)[0]
+    np.testing.assert_array_equal(got, _truncated(want))
+
+
+def test_diffusion_gdp_config_sets_the_scale_and_schedule(tmp_path,
+                                                          monkeypatch,
+                                                          capsys):
+    """``--gdp-config gdp_train_54_216``: x4 and 1000 linear steps from the
+    config (``--scale`` and ``--timesteps`` yield to it, as in JAX), the
+    UNet replaced whole by ``--unet-kwargs``."""
+    from sradsgan_tpu_torch.diffusion import trainer as trainer_module
+
+    seen = {}
+
+    def train(self, n_iter, val_freq=0, log_freq=50):
+        seen.update(scale=self.scale, n=self.sched.num_timesteps,
+                    inner=self.unet.inner_channel, bf16=self.bf16)
+        return 0.5
+
+    monkeypatch.setattr(trainer_module.DiffusionTrainer, "train", train)
+    assert cli.main(["diffusion-train", "--gdp-config", "gdp_train_54_216",
+                     "--n-iter", "1", "--save-dir", str(tmp_path)]
+                    + DIFFUSION) == 0
+    assert seen == {"scale": 4, "n": 1000, "inner": 32, "bf16": False}
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "final_loss"] == 0.5
+
+
+@pytest.mark.parametrize("command", ["diffusion-sample",
+                                     "diffusion-validate"])
+def test_diffusion_commands_refuse_ckpt_with_weights(tmp_path, command):
+    extra = ["--image", "x.png"] if command == "diffusion-sample" else []
+    with pytest.raises(SystemExit, match="not both"):
+        cli.main([command, "--ckpt", "a.pt", "--weights", "b.npz",
+                  "--save-dir", str(tmp_path)] + extra + DIFFUSION)
+
+
+def test_diffusion_sample_runs_without_pillow(tmp_path, monkeypatch,
+                                              capsys):
+    """The card's machine has no Pillow: an HWC uint8 ``.npy`` in, the SR
+    as float [0, 1] ``.npy`` out, with a note on stderr; a malformed array
+    is refused."""
+    u8 = np.random.default_rng(5).integers(0, 256, (9, 11, 3),
+                                           dtype=np.uint8)
+    np.save(tmp_path / "lr.npy", u8)
+    np.save(tmp_path / "bad.npy", u8.astype(np.float32))
+    monkeypatch.setitem(sys.modules, "PIL", None)  # import raises
+    argv = ["diffusion-sample", "--out-dir", str(tmp_path / "s"),
+            "--save-dir", str(tmp_path / "run")] + DIFFUSION
+    with pytest.raises(SystemExit, match="uint8"):
+        cli.main(argv + ["--image", str(tmp_path / "bad.npy")])
+    assert cli.main(argv + ["--image", str(tmp_path / "lr.npy")]) == 0
+    captured = capsys.readouterr()
+    path = json.loads(captured.out.strip().splitlines()[-1])["sr"]
+    assert path.endswith("GDP_SR_lr_x2.npy")
+    assert "Pillow does not import" in captured.err
+    want = _diffusion_trainer(tmp_path / "run").super_resolution(
+        _bicubic01(u8))[0]
+    np.testing.assert_array_equal(np.load(path), np.clip(want, 0, 1))

@@ -75,8 +75,9 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
     chip_smoke, and running the evaluation commands that the card's machine
     runs (no Pillow, no matplotlib there): ``validate-by-class`` and
     ``train`` with its final table, both with LPIPS, ``train --model
-    sragan``, on the synthetic set at tiny sizes, and ``export`` of a tiny
-    HAT read back by ``serving.load_exported``."""
+    sragan``, on the synthetic set at tiny sizes, ``export`` of a tiny
+    HAT read back by ``serving.load_exported``, and ``diffusion-train``
+    with the diffusion modules."""
     tiny = json.dumps({"base_filters": 16, "n_groups": 1, "n_blocks": 1})
     flags = ["--device", "cpu", "--data", "synthetic", "--scale", "2",
              "--crop-size", "32", "--lpips", "--save-dir", str(tmp_path),
@@ -92,7 +93,13 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
                  "2", "--lr-size", "8", "--out", str(tmp_path / "hat.pt2"),
                  "--model-kwargs", json.dumps(
                      {"embed_dim": 12, "depths": [1], "num_heads": [2],
-                      "window_size": 4})]]
+                      "window_size": 4})],
+                ["diffusion-train", "--device", "cpu", "--data",
+                 "synthetic", "--scale", "2", "--crop-size", "16",
+                 "--batch-size", "2", "--n-iter", "1", "--timesteps", "4",
+                 "--no-bf16", "--save-dir", str(tmp_path), "--unet-kwargs",
+                 json.dumps({"inner_channel": 32, "channel_mults": [1, 2],
+                             "res_blocks": 1})]]
     code = ("import json, sys\n"
             "import sradsgan_tpu_torch, sradsgan_tpu_torch.serving\n"
             "import sradsgan_tpu_torch.cli, sradsgan_tpu_torch.models\n"
@@ -121,6 +128,10 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
             "import sradsgan_tpu_torch.models.ndsrgan\n"
             "import sradsgan_tpu_torch.models.amssrn\n"
             "import sradsgan_tpu_torch.models.hat\n"
+            "import sradsgan_tpu_torch.diffusion.gaussian\n"
+            "import sradsgan_tpu_torch.diffusion.unet\n"
+            "import sradsgan_tpu_torch.diffusion.config\n"
+            "import sradsgan_tpu_torch.diffusion.trainer\n"
             f"for argv in {commands!r}:\n"
             "    assert sradsgan_tpu_torch.cli.main(argv) == 0\n"
             "import numpy as np\n"
