@@ -117,7 +117,16 @@ Phases, each of which raises (exit code 1) on failure:
    the whole 1000-step chain of one 216^2 image in both; an 8-step chain
    at 64^2 fed the same noise on the card and on the CPU;
    ``diffusion-train``, ``diffusion-validate`` (plain and
-   ``--continuous``) and ``diffusion-sample`` at 64^2; no kernel launched.
+   ``--continuous``) and ``diffusion-sample`` at 64^2; no kernel launched;
+13. the data mesh (``parallel/mesh.py``) with the flagship at full width
+   (seeded fan-in weights, float32): one NCCL rank's step at batch 16
+   against the step without a process group (launches exact, GRAD_TOL),
+   both timed over alternating turns; two gloo ranks spawned on the card
+   (``tools/dp_check.py``) at a global batch of 16, and of 4 x 216^2 for
+   ``DiffusionTrainer``, against the one-process card step (launches,
+   losses, every gradient, the D's running statistics) and bit-equal to
+   each other after three steps; with more than one card, the same with
+   one NCCL rank a card, the step then timed in as many turns as on one.
 
 It prints the kernels' record as one JSON line before the last, and ends
 with ``{"ok": true, "device": {...}}``.
@@ -2468,6 +2477,353 @@ def phase_diffusion(smi: str) -> dict:
     return out
 
 
+# phase_data_parallel: the data mesh (parallel/mesh.py) on the card
+DP_SEED, DP_ALPHA_SEED, DP_DRAW_SEED = 21, 7, 1
+DP_STEPS = 3            # steps of each rank, after which they must be equal
+DP_TURNS = ("plain", "group", "group", "plain") * 2  # alternating timing
+DP_TIMED_STEPS = 3      # steps a turn
+# The D's running statistics after the first step, two ranks against one
+# process: global statistics summed in another order (values of order one)
+STAT_TOL = 1e-5
+DP_DEADLINE_S = 600.0
+
+
+def _grads_of(model: torch.nn.Module) -> dict:
+    return {n: p.grad.detach().cpu().clone()
+            for n, p in model.named_parameters()}
+
+
+def _dp_grad_faults(got: dict, ref: dict, zero: set, tol: float,
+                    what: str) -> tuple:
+    """(worst error of max|ref| outside ``zero``, its name, faults): every
+    gradient within ``tol`` of its own max|ref|, one that is zero by the
+    math (``zero``) within ZERO_TOL of the network's largest."""
+    largest = max(float(g.abs().max()) for g in ref.values())
+    worst, worst_name, faults = 0.0, "", []
+    if set(got) != set(ref):
+        return 0.0, "", [f"{what}: gradient names differ"]
+    for name, g in ref.items():
+        err = float((got[name].double() - g.double()).abs().max())
+        if name in zero:
+            if not err <= ZERO_TOL * largest:
+                faults.append(f"{what} {name} (zero by the math) off by "
+                              f"{err:.3e}, over {ZERO_TOL:.0e} of the "
+                              f"network's largest {largest:.3e}")
+            continue
+        scale = float(g.abs().max())
+        rel = err / scale if scale else (0.0 if err == 0 else float("inf"))
+        if rel > worst:
+            worst, worst_name = rel, name
+        if not rel <= tol:
+            faults.append(f"{what} {name} off by {rel:.3e} of max|ref|, over "
+                          f"{tol:.0e}")
+    return worst, worst_name, faults
+
+
+def _dp_nccl_world_one(smi: str, batch: dict, store: str) -> dict:
+    """(a): the flagship's step with a process group of one NCCL rank
+    against the same step without a group, then both timed over
+    alternating turns.  Returns the report, the group step's launches and
+    the reference: its initial weights, losses, gradients and D running
+    statistics."""
+    import dataclasses
+
+    from sradsgan_tpu_torch.parallel.mesh import create_mesh
+
+    plain = _fan_in_trainer("cuda")
+    initial = {"generator": plain.generator, "vgg": plain.vgg,
+               "discriminator": plain.discriminator}
+    initial = {k: {n: t.detach().cpu().clone()
+                   for n, t in m.state_dict().items()}
+               for k, m in initial.items()}
+    grouped = _fan_in_trainer("cuda")
+    mesh = create_mesh(1, "cuda", rank=0, world=1,
+                       init_method=f"file://{store}")
+    backend = torch.distributed.get_backend(mesh.group)
+    grouped.mesh = mesh
+    no_group = dataclasses.replace(mesh, group=None)
+    try:
+        reset_launches()
+        got = grouped.train_step(batch,
+                                 torch.Generator().manual_seed(DP_ALPHA_SEED))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = plain.train_step(batch,
+                                torch.Generator().manual_seed(DP_ALPHA_SEED))
+        faults = []
+        if launches != step_launches(grouped):
+            faults.append(f"the NCCL step launched {launches}, not the "
+                          f"single-process step's {step_launches(grouped)}")
+        losses = {k: float(v) for k, v in want.items()}
+        for key, value in losses.items():
+            if not abs(float(got[key]) - value) <= LOSS_TOL * max(
+                    abs(value), 1e-2):
+                faults.append(f"NCCL step {key} {float(got[key])!r} vs "
+                              f"{value!r} without a group")
+        report = {"backend": backend, "card": smi}
+        ref_grads = {}
+        equal = True
+        for net in ("generator", "discriminator"):
+            ref_grads[net] = _grads_of(getattr(plain, net))
+            mine = _grads_of(getattr(grouped, net))
+            equal &= all(torch.equal(mine[n], g)
+                         for n, g in ref_grads[net].items())
+            worst, name, bad = _dp_grad_faults(
+                mine, ref_grads[net], zero_by_math(getattr(plain, net)),
+                GRAD_TOL[net], f"NCCL {net}")
+            faults += bad
+            report[f"{net}_worst"] = {"name": name, "err": worst,
+                                      "tol": GRAD_TOL[net]}
+        report["bit_equal_to_no_group"] = bool(equal)
+        ref_stats = {k: v.detach().cpu().clone() for k, v in
+                     plain.discriminator.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+        print(f"data parallel (a) NCCL world 1 ({backend}), flagship x4 "
+              f"batch 16 f32: launches {launches}; losses and gradients "
+              f"against the step without a group: bit-equal "
+              f"{report['bit_equal_to_no_group']}, worst G "
+              f"{report['generator_worst']['err']:.3e} "
+              f"({report['generator_worst']['name']}), worst D "
+              f"{report['discriminator_worst']['err']:.3e} "
+              f"({report['discriminator_worst']['name']}) [{smi}]")
+        if faults:
+            fail("data parallel (a): " + "; ".join(faults))
+        # the all-reduces' cost at world 1: the same trainer with and
+        # without its group, in alternating turns
+        times = {"plain": [], "group": []}
+        gen = torch.Generator().manual_seed(DP_ALPHA_SEED)
+        for turn in DP_TURNS:
+            grouped.mesh = mesh if turn == "group" else no_group
+            grouped.train_step(batch, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_TIMED_STEPS):
+                metrics = grouped.train_step(batch, gen)
+            float(metrics["loss_G"])  # waits
+            times[turn].append((time.perf_counter() - t0) / DP_TIMED_STEPS
+                               * 1e3)
+        report["ms_per_step"] = times
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        report["median_ms"] = med
+        report["all_reduce_cost_ms"] = med["group"] - med["plain"]
+        print(f"data parallel (a) step time over alternating turns "
+              f"{DP_TURNS}: with the group {times['group']} ms, without "
+              f"{times['plain']} ms; medians {med['group']:.2f} / "
+              f"{med['plain']:.2f} ms, the world-1 all-reduces' cost "
+              f"{report['all_reduce_cost_ms']:+.2f} ms a step [{smi}]")
+    finally:
+        torch.distributed.destroy_process_group()
+    reference = {"weights": initial, "losses": losses, "grads": ref_grads,
+                 "stats": ref_stats, "launches": step_launches(plain),
+                 "cfg": plain.cfg,
+                 "zero": {net: zero_by_math(getattr(plain, net))
+                          for net in ("generator", "discriminator")}}
+    return report, launches, reference
+
+
+def _dp_diffusion_reference(batch: dict, weights_path: str) -> dict:
+    """(c)'s one-process card step: the full-width UNet with seeded fan-in
+    weights (saved to ``weights_path``) at batch 4 of 216^2."""
+    from sradsgan_tpu_torch.diffusion.config import (
+        load_gdp_config, trainer_kwargs_from_config)
+    from sradsgan_tpu_torch.diffusion.trainer import DiffusionTrainer
+
+    unet_kwargs = trainer_kwargs_from_config(
+        load_gdp_config(DIFFUSION_CONFIG))["unet_kwargs"]
+    with tempfile.TemporaryDirectory() as save_dir:
+        trainer = DiffusionTrainer(DataConfig(crop_size=216, batch_size=4), 4,
+                                   save_dir=save_dir, unet_kwargs=unet_kwargs,
+                                   bf16=False, device="cuda")
+    fan_in_init(trainer.unet, seed=6)
+    torch.save({k: v.cpu() for k, v in trainer.unet.state_dict().items()},
+               weights_path)
+    loss = float(trainer.train_step(
+        batch, torch.Generator("cuda").manual_seed(DP_DRAW_SEED)))
+    return {"loss": loss, "grads": _grads_of(trainer.unet),
+            "unet_kwargs": unet_kwargs}
+
+
+def _dp_hold(ranks: list, ref: dict, diff_ref: dict, label: str) -> tuple:
+    """(report, faults) of ranks' results (``tools/dp_check.py``) against
+    the one-process card steps: each rank's launches, losses (LOSS_TOL),
+    G and D gradients (GRAD_TOL, ZERO_TOL), the D's running statistics
+    (STAT_TOL), the UNet's loss and gradients (DIFFUSION_STEP_GRAD_TOL),
+    and the ranks' parameters bit-equal after DP_STEPS steps.  A scenario
+    a run left out (its global batch not split by the ranks) is skipped."""
+    faults = []
+    report = {"ranks": len(ranks)}
+    for rank, res in enumerate(ranks):
+        gan, diff = res.get("gan"), res.get("diffusion")
+        if gan is not None:
+            if gan["launches"][0] != ref["launches"]:
+                faults.append(f"rank {rank} launched {gan['launches'][0]}, "
+                              f"not the single-process step's "
+                              f"{ref['launches']}")
+            for key, value in ref["losses"].items():
+                got = gan["losses"][0][key]
+                if not abs(got - value) <= LOSS_TOL * max(abs(value), 1e-2):
+                    faults.append(f"rank {rank} {key} {got!r} vs one "
+                                  f"process {value!r}")
+            for net, zero in ref["zero"].items():
+                worst, name, bad = _dp_grad_faults(
+                    gan["grads"][net], ref["grads"][net], zero,
+                    GRAD_TOL[net], f"rank {rank} {net}")
+                faults += bad
+                report[f"rank{rank}_{net}_worst"] = {"name": name,
+                                                     "err": worst}
+            stats = gan["stats"]["discriminator"]
+            stat_err = max(float((stats[k] - v).abs().max())
+                           for k, v in ref["stats"].items())
+            report[f"rank{rank}_d_stats_err"] = stat_err
+            if set(stats) != set(ref["stats"]) or not stat_err <= STAT_TOL:
+                faults.append(f"rank {rank} D running statistics off by "
+                              f"{stat_err:.3e}, over {STAT_TOL:.0e}")
+        if diff is not None:
+            want = diff_ref["loss"]
+            if not abs(diff["losses"][0] - want) <= LOSS_TOL * max(
+                    abs(want), 1e-2):
+                faults.append(f"rank {rank} diffusion loss "
+                              f"{diff['losses'][0]!r} vs one process "
+                              f"{want!r}")
+            errs = {n: _max_rel(diff["grads"][n], g) if g.abs().max() > 0
+                    else (float("inf") if diff["grads"][n].any() else 0.0)
+                    for n, g in diff_ref["grads"].items()}
+            worst = max(errs, key=errs.get)
+            report[f"rank{rank}_unet_worst"] = {"name": worst,
+                                                "err": errs[worst]}
+            if not errs[worst] <= DIFFUSION_STEP_GRAD_TOL:
+                faults.append(f"rank {rank} UNet gradient {worst} off by "
+                              f"{errs[worst]:.3e} of max|ref|")
+    for scenario in ("gan", "diffusion"):
+        if scenario not in ranks[0]:
+            continue
+        states = [r[scenario]["state"] for r in ranks]
+        if scenario == "gan":
+            states = [{f"{net}.{k}": v for net, sd in s.items()
+                       for k, v in sd.items()} for s in states]
+        equal = all(set(s) == set(states[0]) and all(
+            torch.equal(s[k], states[0][k]) for k in s) for s in states[1:])
+        report[f"{scenario}_bit_equal_after_{DP_STEPS}_steps"] = equal
+        if not equal:
+            faults.append(f"the ranks' {scenario} parameters differ after "
+                          f"{DP_STEPS} steps")
+        # host clock a step (its loss read): the median over the turns of
+        # the slowest rank's turn, where the run timed turns
+        turns = [r[scenario]["turn_ms"] for r in ranks]
+        if turns[0]:
+            slowest = [max(t) for t in zip(*turns)]
+            report[f"{scenario}_turn_ms"] = slowest
+            report[f"{scenario}_step_ms"] = float(np.median(slowest))
+    head = ", ".join(
+        f"{k} {v['err']:.3e}" if isinstance(v, dict) else f"{k} {v}"
+        for k, v in report.items() if k.startswith("rank0_")
+        or "bit_equal" in k or k.endswith(("turn_ms", "step_ms")))
+    print(f"data parallel {label}: {head}")
+    return report, [f"{label}: {f}" for f in faults]
+
+
+def phase_data_parallel(smi: str) -> tuple:
+    """The data mesh of ``parallel/mesh.py`` on the card, the flagship at
+    full width (x4, 12 groups, seeded fan-in weights, float32):
+
+    (a) a process group of one NCCL rank: the step at batch 16 must launch
+    what the single-process step launches and agree with the step without
+    a group (GRAD_TOL, LOSS_TOL), and the two are timed over alternating
+    turns: the all-reduces' cost at world 1;
+    (b) two gloo ranks spawned on this card (``tools/dp_check.py``) at a
+    global batch of 16, 8 a rank, the same global penalty weights: each
+    rank's launches equal the single-process step's, its losses (LOSS_TOL),
+    every G and D gradient (GRAD_TOL, ZERO_TOL) and the D's running
+    statistics (STAT_TOL) those of the one-process step at batch 16, and
+    after DP_STEPS steps the ranks' parameters are bit-equal;
+    (c) the same for ``DiffusionTrainer``'s step at a global batch of 4 x
+    216^2 (the UNet of DIFFUSION_CONFIG), the same global t and noise,
+    gradients within DIFFUSION_STEP_GRAD_TOL;
+    (d) on a machine with more than one card, (b) and (c) again with one
+    NCCL rank a card (a scenario whose global batch the cards do not split
+    is left out), then each step timed over as many turns and steps as
+    (a)'s, against (a)'s step without a group.  The bars are those of a
+    float32 step against float64: ranks sum in another order than one
+    process.  Returns the
+    report and the launches of (a)'s step and of rank 0's first step in
+    (b)."""
+    from sradsgan_tpu_torch.config import save_config
+    from sradsgan_tpu_torch.tools import dp_check
+
+    t_start = time.perf_counter()
+    out = {"card": smi}
+    batch = dp_check.gan_batches(DP_SEED, 1, 16, 54, 4)[0]
+    diff_batch = dp_check.diffusion_batches(DP_SEED, 1, 4, 216)[0]
+    with tempfile.TemporaryDirectory() as work:
+        out["nccl1"], launches_nccl1, ref = _dp_nccl_world_one(
+            smi, batch, os.path.join(work, "store_a"))
+        torch.save(ref["weights"], os.path.join(work, "flagship.pt"))
+        cfg = ref["cfg"]
+        cfg.data.batch_size, cfg.save_dir = 16, work
+        save_config(cfg, os.path.join(work, "flagship.json"))
+        diff_ref = _dp_diffusion_reference(diff_batch,
+                                           os.path.join(work, "unet.pt"))
+        torch.cuda.empty_cache()
+        scenarios = {
+            "gan": {"name": "gan", "kind": "gan",
+                    "config": os.path.join(work, "flagship.json"),
+                    "weights": os.path.join(work, "flagship.pt"),
+                    "seed": DP_SEED, "steps": DP_STEPS, "batch": 16,
+                    "lr_size": 54, "alpha_seed": DP_ALPHA_SEED},
+            "diffusion": {"name": "diffusion", "kind": "diffusion",
+                          "scale": 4, "crop": 216, "batch": 4,
+                          "unet_kwargs": diff_ref["unet_kwargs"],
+                          "weights": os.path.join(work, "unet.pt"),
+                          "seed": DP_SEED, "steps": DP_STEPS,
+                          "draw_seed": DP_DRAW_SEED}}
+        faults = []
+        t0 = time.perf_counter()
+        ranks = dp_check.run_ranks(
+            {"device": "cuda:0", "backend": "gloo", "threads": 4,
+             "scenarios": list(scenarios.values())}, 2,
+            os.path.join(work, "gloo2"), DP_DEADLINE_S)
+        report, bad = _dp_hold(ranks, ref, diff_ref,
+                               f"(b, c) two gloo ranks on cuda:0 [{smi}]")
+        faults += bad
+        report.update(backend="gloo", seconds=time.perf_counter() - t0,
+                      gloo_took_cuda_tensors=True)  # the all-reduces ran
+        out["gloo2"] = report
+        launches_gloo2 = ranks[0]["gan"]["launches"][0]
+        cards = torch.cuda.device_count()
+        if cards > 1:
+            split = [dict(sc, turns=len(DP_TURNS),
+                          timed_steps=DP_TIMED_STEPS)
+                     for sc in scenarios.values() if sc["batch"] % cards
+                     == 0]
+            t0 = time.perf_counter()
+            ranks = dp_check.run_ranks(
+                {"device": "cuda", "backend": "nccl", "threads": 4,
+                 "scenarios": split}, cards,
+                os.path.join(work, f"nccl{cards}"), DP_DEADLINE_S)
+            report, bad = _dp_hold(ranks, ref, diff_ref,
+                                   f"(d) {cards} NCCL ranks, one a card "
+                                   f"[{smi}]")
+            faults += bad
+            report.update(backend="nccl", seconds=time.perf_counter() - t0,
+                          scenarios=[sc["name"] for sc in split])
+            if "gan_step_ms" in report:
+                one = out["nccl1"]["median_ms"]["plain"]
+                speedup = one / report["gan_step_ms"]
+                report["gan_speedup_over_one_card"] = speedup
+                report["gan_scaling_efficiency"] = speedup / cards
+                print(f"data parallel (d): the flagship's step at global "
+                      f"batch 16, median of {len(DP_TURNS)} turns of "
+                      f"{DP_TIMED_STEPS} steps: {report['gan_step_ms']:.2f} "
+                      f"ms on {cards} cards, {one:.2f} ms on one: "
+                      f"{speedup:.3f}x [{smi}]")
+            out[f"nccl{cards}"] = report
+        if faults:
+            fail("data parallel: " + "; ".join(faults))
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"data parallel phase: {out['seconds']:.1f} s")
+    return out, launches_nccl1, launches_gloo2
+
+
 def main() -> int:
     # Full float32 in the plain versions too: cuDNN would run the float32
     # convs in TF32 (about three decimal digits) by default.
@@ -2492,13 +2848,15 @@ def main() -> int:
     hat = phase_hat(smi)
     exported = phase_export(smi)
     diffusion = phase_diffusion(smi)
+    data_parallel, nccl1, gloo2 = phase_data_parallel(smi)
     paths = {"serving": serving["launches"],
              "serving_fused": serving["fused_launches"],
              **{f"train_{k[len('launches_'):]}": v
                 for k, v in timing.items() if k.startswith("launches_")},
              "cli_train_fused": cli_train["launches"],
              **eval_protocol.pop("launches_by_path"),
-             **zoo.pop("launches_by_path")}
+             **zoo.pop("launches_by_path"),
+             "train_ddp_nccl1": nccl1, "train_ddp_gloo2": gloo2}
     never = [name for name in KERNELS
              if not any(path[name] for path in paths.values())]
     idle = [name for name in KERNELS if not cli_train["launches"][name]]
@@ -2521,7 +2879,8 @@ def main() -> int:
                                     if k != "launches"},
                       "eval_protocol": eval_protocol, "model_zoo": zoo,
                       "hat": hat, "export": exported,
-                      "diffusion": diffusion, "strips": plans,
+                      "diffusion": diffusion,
+                      "data_parallel": data_parallel, "strips": plans,
                       "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

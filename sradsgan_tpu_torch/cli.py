@@ -70,9 +70,18 @@ weights, Adam state and step; not both.  ``diffusion-train`` runs
 prints the metrics against the bicubic twin, with the dumps under
 ``--result-dir`` (``--continuous``: the reverse chain's snapshots too);
 ``diffusion-sample`` reads one image (a png or tif through Pillow, or an
-HWC uint8 ``.npy``), upsamples it bicubically by the scale (PIL's 8-bit
-resize, ``ops/resize.py``), samples the SR and writes it as a png, or as
+HWC uint8 ``.npy``), upsamples it bicubically by the scale (Pillow's
+``resize`` as the JAX command does; for an ``.npy`` the port's copy of it,
+``ops/resize.py``, which may differ by one level on a few pixels, so that
+no Pillow is needed), samples the SR and writes it as a png, or as
 ``.npy`` where Pillow does not import.
+
+``train``, ``chain-train`` and ``diffusion-train`` train data-parallel
+under ``torchrun --nproc_per_node=N python -m sradsgan_tpu_torch.cli ...``:
+one process a device, NCCL on the card (gloo with ``--device cpu``),
+``--batch-size`` the global batch (``parallel/mesh.py``).  Rank 0 alone
+archives the run directory, writes, prints the result line and, after
+``train``, the by-class table.
 """
 
 from __future__ import annotations
@@ -177,6 +186,11 @@ def _archive_stale_dir(path: str) -> None:
         os.rename(path, new_name)
 
 
+def _launched_rank() -> int:
+    """This process's rank under a launcher (0 without one)."""
+    return int(os.environ.get("RANK", "0"))
+
+
 def cmd_train(args) -> int:
     from sradsgan_tpu_torch.train.trainer import Trainer
 
@@ -185,12 +199,14 @@ def cmd_train(args) -> int:
         cfg.num_epochs = args.epochs
     if args.init_from:
         cfg.init_from = args.init_from
-    if not args.resume:
-        _archive_stale_dir(cfg.model_dir)
+    if not args.resume and _launched_rank() == 0:
+        _archive_stale_dir(cfg.model_dir)  # the other ranks wait in Trainer
     trainer = Trainer(cfg, device=args.device)
     if args.resume:
         trainer.load_checkpoint(args.resume)
     metrics = trainer.train(num_steps=args.steps)
+    if not trainer.mesh.is_main:
+        return 0
     feed = dict(trainer.feed_stats)
     if feed.get("epoch_s"):
         feed["feed_share"] = feed["feed_wait_s"] / feed["epoch_s"]
@@ -224,9 +240,11 @@ def cmd_chain_train(args) -> int:
         best = os.path.join(cfg.model_dir, "ckpt_best.pt")
         if os.path.exists(best):
             prev_ckpt = best
-        print(f"scale x{scale} done; next init_from={prev_ckpt}")
-    print(json.dumps({k: {m: float(v) for m, v in r.items()}
-                      for k, r in results.items()}))
+        if trainer.mesh.is_main:
+            print(f"scale x{scale} done; next init_from={prev_ckpt}")
+    if trainer.mesh.is_main:
+        print(json.dumps({k: {m: float(v) for m, v in r.items()}
+                          for k, r in results.items()}))
     return 0
 
 
@@ -314,7 +332,8 @@ def cmd_diffusion_train(args) -> int:
     trainer = _build_diffusion_trainer(args)
     loss = trainer.train(args.n_iter, val_freq=args.val_freq)
     path = trainer.save_checkpoint()
-    print(json.dumps({"final_loss": loss, "ckpt": path}))
+    if trainer.mesh.is_main:
+        print(json.dumps({"final_loss": loss, "ckpt": path}))
     return 0
 
 
@@ -327,36 +346,40 @@ def cmd_diffusion_validate(args) -> int:
     return 0
 
 
-def _read_rgb_u8(path: str):
-    """An image as HWC uint8 RGB: an ``.npy`` of HWC uint8 as it is,
-    anything else through Pillow."""
+def _bicubic_u8(path: str, scale: int):
+    """An image upsampled bicubically by ``scale``, as HWC float32 in
+    [0, 255]: an ``.npy`` of HWC uint8 through the port's 8-bit resize,
+    anything else opened and resized by Pillow, as the JAX command does."""
     import numpy as np
 
     if path.endswith(".npy"):
+        import torch
+
+        from sradsgan_tpu_torch.ops.resize import resize_uint8
+
         arr = np.load(path)
         if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
             raise SystemExit(f"{path}: want an HWC uint8 RGB array, got "
                              f"{arr.dtype} {arr.shape}")
-        return arr
+        h, w = arr.shape[:2]
+        return resize_uint8(torch.from_numpy(arr.astype(np.float32)),
+                            h * scale, w * scale, "bicubic").numpy()
     from PIL import Image
 
-    return np.asarray(Image.open(path).convert("RGB"))
+    img = Image.open(path).convert("RGB")
+    return np.asarray(img.resize((img.width * scale, img.height * scale),
+                                 Image.BICUBIC), np.float32)
 
 
 def cmd_diffusion_sample(args) -> int:
     import numpy as np
-    import torch
 
-    from sradsgan_tpu_torch.ops.resize import resize_uint8
     from sradsgan_tpu_torch.utils.plotting import save_image
 
     trainer = _build_diffusion_trainer(args)
     scale = trainer.scale  # --gdp-config's where given
-    u8 = _read_rgb_u8(args.image)
-    h, w = u8.shape[:2]
-    bc = resize_uint8(torch.from_numpy(u8.astype(np.float32)), h * scale,
-                      w * scale, "bicubic")
-    sr = trainer.super_resolution(bc.numpy()[None] / 255.0)[0]
+    bc = _bicubic_u8(args.image, scale)
+    sr = trainer.super_resolution(bc[None] / 255.0)[0]
     name = os.path.splitext(os.path.basename(args.image))[0]
     out = os.path.join(args.out_dir, f"GDP_SR_{name}_x{scale}.png")
     try:
@@ -494,7 +517,12 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_list_models)
 
     args = parser.parse_args(argv)
-    return args.fn(args)
+    code = args.fn(args)
+    import torch.distributed as dist
+
+    if dist.is_initialized():  # a data mesh's group, under torchrun
+        dist.destroy_process_group()
+    return code
 
 
 if __name__ == "__main__":

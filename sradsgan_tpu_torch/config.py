@@ -2,12 +2,13 @@
 
 The fields the port reads, with the defaults of the JAX package's
 ``TrainConfig`` (``sradsgan_tpu/core/config.py``); a test holds the two sets
-of defaults equal.  Left out are the knobs of the TPU and its mesh:
-``steps_per_call`` (a ``lax.scan`` of the step), ``num_devices`` and
-``data.device_degrade``.  :func:`save_config` writes a config as JSON;
-:func:`load_config` reads that and the JSON the JAX package's
-``save_config`` writes, ignores those three and refuses any other key it
-does not know.
+of defaults equal.  Left out are two knobs of the TPU: ``steps_per_call``
+(a ``lax.scan`` of the step) and ``data.device_degrade``.
+``num_devices`` is the size of the data mesh (``parallel/mesh.py``): the
+number of processes ``torchrun`` starts, -1 for whatever it started.
+:func:`save_config` writes a config as JSON; :func:`load_config` reads that
+and the JSON the JAX package's ``save_config`` writes, ignores those two
+and refuses any other key it does not know.
 """
 
 from __future__ import annotations
@@ -85,6 +86,8 @@ class TrainConfig:
     bf16: bool = True             # bf16 generator (and VGG) convs
     d_bf16: bool = True           # bf16 discriminator convs, with bf16 on
     val_lpips: bool = False       # LPIPS in the validation sweep
+    # Ranks of the data mesh (one process a device); -1: as launched.
+    num_devices: int = -1
     # Extra generator constructor kwargs (e.g. smaller test networks, or
     # {"rab_tail": "fused"}).
     model_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -100,7 +103,7 @@ class TrainConfig:
 
 _NESTED = {"data": DataConfig, "optim": OptimConfig, "gan": GanConfig}
 # Keys of the JAX package's config that the port has no use for.
-_TPU_KEYS = {TrainConfig: {"steps_per_call", "num_devices"},
+_TPU_KEYS = {TrainConfig: {"steps_per_call"},
              DataConfig: {"device_degrade"}}
 
 

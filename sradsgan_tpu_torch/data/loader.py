@@ -33,23 +33,38 @@ class DataLoader:
     """Epoch iterator over a dataset yielding collated NHWC numpy batches.
 
     Each pass over the loader shuffles with
-    ``np.random.default_rng(seed + passes so far)``."""
+    ``np.random.default_rng(seed + passes so far)``.
+
+    ``shard_index``/``shard_count`` split the data over the ranks of a data
+    mesh as the JAX loader does: every rank shuffles with the same seed and
+    takes ``order[shard_index::shard_count]``, so with ``batch_size`` the
+    local batch b, step i of the ranks together covers positions
+    ``i*b*count ... (i+1)*b*count - 1`` of the order, the one-process
+    loader's batch i at batch ``b * count``.  With ``drop_last`` every shard
+    yields ``len(dataset) // (b * count)`` batches, as many as that loader:
+    a stride's share of the tail may differ by one image between shards,
+    and a rank that took one step more than the others would wait in its
+    collectives forever.  Without ``drop_last`` (a sweep) each shard yields
+    all its images."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 8,
-                 seed: int = 0):
+                 seed: int = 0, shard_index: int = 0, shard_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(num_workers, 1)
         self.seed = seed
+        self.shard_index = shard_index
+        self.shard_count = max(shard_count, 1)
         self._epoch = 0
 
     def __len__(self) -> int:
         n = len(self.dataset)
         if self.drop_last:
-            return n // self.batch_size
+            return n // (self.batch_size * self.shard_count)
+        n = (n - self.shard_index + self.shard_count - 1) // self.shard_count
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -57,10 +72,11 @@ class DataLoader:
         rng = np.random.default_rng(self.seed + self._epoch)
         if self.shuffle:
             rng.shuffle(order)
+        order = order[self.shard_index::self.shard_count]
         n = len(order)
         self._epoch += 1
 
-        stop = n - (n % self.batch_size) if self.drop_last else n
+        stop = len(self) * self.batch_size if self.drop_last else n
         indices = [order[i:i + self.batch_size]
                    for i in range(0, stop, self.batch_size)]
         if not indices:

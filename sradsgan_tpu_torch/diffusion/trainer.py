@@ -19,8 +19,17 @@ draws from a ``torch.Generator`` on the device seeded 1 at each
 :meth:`train` call, a sample's from one seeded with the step count unless
 the caller hands one in; the JAX package draws from ``PRNGKey``s of the same
 seeds, so the two agree only where a test hands both the same ``t`` and
-noise (:meth:`train_step`'s ``t`` and ``noise``).  The data mesh of the JAX
-trainer (``num_devices``) is not ported.
+noise (:meth:`train_step`'s ``t`` and ``noise``).
+
+Data parallelism (``num_devices``; ``parallel/mesh.py``), as in the GAN
+trainer: under ``torchrun`` each rank steps on its rows of the global batch
+(``data_cfg.batch_size``), ``t`` and the noise are drawn for the global
+batch from the same seeded generator on every rank and sliced alike, the
+gradients are averaged over the ranks, the logged loss is the mean over the
+ranks, and rank 0 alone writes.  GroupNorm normalizes each image alone, so
+the UNet needs no other collective, and with dropout 0 (every shipped
+config) W ranks take the one-process step at the global batch.  With
+dropout, each rank draws its own masks.
 """
 
 from __future__ import annotations
@@ -46,6 +55,9 @@ from sradsgan_tpu_torch.diffusion.unet import UNet
 from sradsgan_tpu_torch.metrics.fidelity import (compare_ergas, compare_mse,
                                                  compare_psnr, compare_ssim,
                                                  tensor_to_uint8)
+from sradsgan_tpu_torch.parallel.mesh import (all_reduce_grads_,
+                                              all_reduce_sums, create_mesh,
+                                              replicate, shard_batch)
 from sradsgan_tpu_torch.utils.logging import Logger
 
 
@@ -68,13 +80,15 @@ class DiffusionTrainer:
                  linear_start: float = 1e-4, linear_end: float = 2e-2,
                  lr: float = 1e-4, unet_kwargs: Optional[dict] = None,
                  bf16: bool = True, seed: int = 0,
-                 device: torch.device | str = "cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+                 device: torch.device | str = "cuda", num_devices: int = -1):
+        if (torch.device(device).type == "cuda"
+                and not torch.cuda.is_available()):
             raise RuntimeError(
                 f"DiffusionTrainer(device={str(device)!r}) needs a CUDA "
                 "device and this torch sees none; pass device='cpu' to run "
                 "on the CPU")
+        self.mesh = create_mesh(num_devices, device)
+        self.device = self.mesh.device
         self.data_cfg = data_cfg
         self.scale = scale
         self.save_dir = save_dir
@@ -84,7 +98,8 @@ class DiffusionTrainer:
         self.logger = Logger("gdp", os.path.join(save_dir, "logs"))
         unet_kwargs = dict(unet_kwargs or {})
         unet_kwargs.setdefault("image_size", data_cfg.crop_size)
-        self.unet = UNet(**unet_kwargs, seed=seed, device=self.device)
+        self.unet = replicate(UNet(**unet_kwargs, seed=seed,
+                                   device=self.device), self.mesh)
         # optax.adam's defaults
         self.opt = torch.optim.Adam(self.unet.parameters(), lr=lr,
                                     betas=(0.9, 0.999), eps=1e-8)
@@ -110,50 +125,78 @@ class DiffusionTrainer:
                    generator: Optional[torch.Generator] = None,
                    t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One Adam step on ``{"HR": x0, "SR": conditioner}`` in [-1, 1]
-        (NHWC numpy or NCHW tensors); ``t`` (B,) and the noise (like the
-        batch) drawn from ``generator`` unless both are given.  Returns the
-        loss (a float32 tensor, not synchronized)."""
+        """One Adam step on the global batch ``{"HR": x0, "SR":
+        conditioner}`` in [-1, 1] (NHWC numpy or NCHW tensors), of which
+        this rank takes its rows; ``t`` (B,) and the noise (like the batch)
+        drawn from ``generator`` unless both are given, for the global
+        batch either way.  Returns the loss, the mean over the ranks (a
+        float32 tensor, not synchronized)."""
+        if t is not None and noise is not None:
+            t, noise = shard_batch(t, self.mesh), shard_batch(noise, self.mesh)
+        else:
+            t = noise = None
+        return self._local_step(shard_batch(dict(batch), self.mesh),
+                                generator, t, noise)
+
+    def _local_step(self, batch: Mapping[str, Any],
+                    generator: Optional[torch.Generator],
+                    t=None, noise=None) -> torch.Tensor:
+        """:meth:`train_step` on this rank's rows (and, where given, their
+        ``t`` and noise)."""
+        mesh = self.mesh
         x0 = self._to_device(batch["HR"])
         cond = self._to_device(batch["SR"])
-        if t is None or noise is None:
-            t, noise = draw_timesteps_and_noise(self.sched, x0, generator)
+        if t is None or noise is None:  # the global batch's, this rank's rows
+            t, noise = draw_timesteps_and_noise(
+                self.sched, x0[:1].expand(x0.shape[0] * mesh.world, -1, -1,
+                                          -1), generator)
+            t, noise = t[mesh.rank::mesh.world], noise[mesh.rank::mesh.world]
         self.unet.train()
         loss = p_losses_given(self.denoise, self.sched, x0, cond,
                               torch.as_tensor(t, device=self.device).long(),
                               self._to_device(noise))
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads_(self.unet.parameters(), mesh)
         self.opt.step()
-        return loss.detach()
+        return (all_reduce_sums([loss], mesh)[0]
+                / mesh.world).to(loss.dtype)
 
     def train(self, n_iter: int, val_freq: int = 0,
               log_freq: int = 50) -> float:
         """Steps until ``self.step`` reaches ``n_iter``, the loader rebuilt
-        on each pass with ``seed=self.step``; a log line every ``log_freq``
-        steps, ``validate(4)`` every ``val_freq``.  Returns the last loss."""
+        on each pass with ``seed=self.step`` (each rank on its shard); a log
+        line every ``log_freq`` steps, ``validate(4)`` every ``val_freq``
+        (on every rank; rank 0 logs).  Returns the last loss."""
+        mesh = self.mesh
+        batch_size = self.data_cfg.batch_size
+        if batch_size % mesh.world:
+            raise ValueError(f"batch_size {batch_size} (the global batch) "
+                             f"does not split over {mesh.world} ranks")
         ds = build_train_dataset(self.data_cfg, self.scale)
         generator = torch.Generator(self.device).manual_seed(1)
         loss = None
         t0 = time.time()
         while self.step < n_iter:
-            loader = DataLoader(ds, self.data_cfg.batch_size, shuffle=True,
+            loader = DataLoader(ds, batch_size // mesh.world, shuffle=True,
                                 num_workers=self.data_cfg.num_workers,
-                                seed=self.step)
+                                seed=self.step, shard_index=mesh.rank,
+                                shard_count=mesh.world)
             feed = device_prefetch(iter(loader), self.device)
             for batch in feed:
                 gdp_batch = {"HR": 2.0 * batch["hr"] - 1.0,
                              "SR": 2.0 * batch["bc"] - 1.0}
-                loss = self.train_step(gdp_batch, generator)
+                loss = self._local_step(gdp_batch, generator)
                 self.step += 1
-                if self.step % log_freq == 0:
+                if self.step % log_freq == 0 and mesh.is_main:
                     self.logger.print_format_results(
                         "train", {"iter": self.step, "loss": float(loss),
                                   "it/s": self.step / (time.time() - t0)})
                 if val_freq and self.step % val_freq == 0:
                     val = self.validate(max_images=4)
-                    self.logger.print_format_results(
-                        "val", {"iter": self.step, **val})
+                    if mesh.is_main:
+                        self.logger.print_format_results(
+                            "val", {"iter": self.step, **val})
                 if self.step >= n_iter:
                     break
             feed.close()
@@ -302,12 +345,15 @@ class DiffusionTrainer:
     def save_checkpoint(self, tag: str = "latest") -> str:
         """Save the UNet's weights, the Adam state and the step (the
         reference saves gen + opt so a long run resumes exactly,
-        GDP_x0/model/model.py:126-146) to ``gdp_ckpt_{tag}.pt``."""
-        os.makedirs(self.save_dir, exist_ok=True)
+        GDP_x0/model/model.py:126-146) to ``gdp_ckpt_{tag}.pt``: rank 0
+        writes, and every rank returns the path once the file is there."""
         path = os.path.join(self.save_dir, f"gdp_ckpt_{tag}.pt")
-        torch.save({"unet": self.unet.state_dict(),
-                    "optimizer": self.opt.state_dict(),
-                    "step": self.step}, path)
+        if self.mesh.is_main:
+            os.makedirs(self.save_dir, exist_ok=True)
+            torch.save({"unet": self.unet.state_dict(),
+                        "optimizer": self.opt.state_dict(),
+                        "step": self.step}, path)
+        self.mesh.barrier()
         return path
 
     def load_checkpoint(self, path: str) -> None:
@@ -317,3 +363,4 @@ class DiffusionTrainer:
         self.unet.load_state_dict(state["unet"])
         self.opt.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
+        replicate(self.unet, self.mesh)

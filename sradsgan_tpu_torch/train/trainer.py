@@ -51,6 +51,23 @@ step decay, the plateau backtrack, the lr-floor stop, and chain
 initialization from ``cfg.init_from`` (:func:`partial_restore`).
 TensorBoard summaries, the loss-curve plot and ``steps_per_call`` are not
 ported.
+
+Data parallelism (``cfg.num_devices``; ``parallel/mesh.py``): under
+``torchrun`` each rank holds the whole models and steps on its rows of the
+global batch (``cfg.data.batch_size``, as in JAX), so that W ranks take the
+step one process takes at that batch, the JAX package's sharded step:
+:meth:`train_step` takes a global batch and keeps this rank's rows, the
+penalty's interpolation weights are drawn for the global batch and sliced
+alike, the gradients are averaged over the ranks before each optimizer step
+(so the D's weight clip stays the same on every rank), BatchNorm in train
+mode takes the global batch's statistics, and the returned losses are means
+over the ranks.  The epoch loop feeds each rank its shard of the shuffled
+order (the same number of steps on every rank), the sweep sums each
+rank's images once and adds the sums over the ranks, every rank takes the
+plateau and best-metric decisions from the same numbers, and rank 0 alone
+writes checkpoints and logs, each write followed by a barrier.  The
+relativistic losses, whose batch means would be the rank's, are refused on
+more than one rank.
 """
 
 from __future__ import annotations
@@ -75,10 +92,30 @@ from sradsgan_tpu_torch.metrics.fidelity import (batched_ergas, batched_psnr,
                                                  batched_ssim)
 from sradsgan_tpu_torch.models import create_generator, get_spec
 from sradsgan_tpu_torch.ops import plain_dtype
+from sradsgan_tpu_torch.parallel.mesh import (all_reduce_grads_,
+                                              all_reduce_sums, create_mesh,
+                                              replicate, shard_batch)
 from sradsgan_tpu_torch.train.state import get_lr, make_optimizer, set_lr
 from sradsgan_tpu_torch.utils.logging import Logger
 
 Batch = Mapping[str, Any]
+# The sweep's per-image metrics (:meth:`Trainer._eval_step`); with
+# ``cfg.val_lpips`` also LPIPS_METRICS.
+EVAL_METRICS = ("psnr", "ssim", "ergas", "bc_psnr", "bc_ssim")
+LPIPS_METRICS = ("lpips", "bc_lpips")
+
+
+class _First:
+    """The first ``n`` images of a dataset."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n = dataset, min(n, len(dataset))
+
+    def __len__(self) -> int:
+        return self.n
+
+    def load(self, index: int):
+        return self.dataset.load(index)
 
 
 def partial_restore(model: nn.Module,
@@ -108,15 +145,22 @@ class Trainer:
     from ``seed``, the discriminator from ``seed + 1``, the VGG features
     (without ``SRADSGAN_TPU_VGG19_NPZ``) from ``seed + 2``; the penalty's
     interpolation weights from a CPU ``torch.Generator`` seeded with
-    ``seed + 1`` unless a step is given its own.
+    ``seed + 1`` unless a step is given its own.  Every rank of a data mesh
+    draws the same weights; rank 0's are broadcast all the same.
     """
 
     def __init__(self, cfg: TrainConfig, device: torch.device | str = "cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if (torch.device(device).type == "cuda"
+                and not torch.cuda.is_available()):
             raise RuntimeError(
                 f"Trainer(device={str(device)!r}) needs a CUDA device and "
                 "this torch sees none; pass device='cpu' to train on the CPU")
+        self.mesh = create_mesh(cfg.num_devices, device)
+        self.device = self.mesh.device
+        if cfg.gan.relativistic and self.mesh.world > 1:
+            raise NotImplementedError(
+                "the relativistic GAN losses take batch means that a data "
+                "mesh would split; train them in one process")
         self.cfg = cfg
         self.spec = get_spec(cfg.model)
         self.g_bf16 = cfg.bf16
@@ -136,6 +180,7 @@ class Trainer:
                 self.vgg = load_vgg19(seed=cfg.seed + 2, device=self.device)
         if cfg.init_from:
             self._chain_init(cfg.init_from)
+        self._replicate()
         o = cfg.optim
         self.g_opt = make_optimizer(self.generator.parameters(), o.lr, o.b1,
                                     o.b2)
@@ -158,10 +203,21 @@ class Trainer:
         leaves them)."""
         prev = torch.load(path, map_location=self.device, weights_only=True)
         kept, skipped = partial_restore(self.generator, prev["generator"])
-        print(f"chain init from {path}: kept {kept} leaves, "
-              f"re-initialized {skipped}")
+        if self.mesh.is_main:
+            print(f"chain init from {path}: kept {kept} leaves, "
+                  f"re-initialized {skipped}")
         if self.discriminator is not None and "discriminator" in prev:
             partial_restore(self.discriminator, prev["discriminator"])
+
+    def _replicate(self) -> None:
+        """Every rank's G and D made rank 0's."""
+        for net in (self.generator, self.discriminator):
+            if net is not None:
+                replicate(net, self.mesh)
+
+    def _log(self, mode: str, results: Dict[str, Any]) -> None:
+        if self.mesh.is_main:
+            self.logger.print_format_results(mode, results)
 
     def _autocast(self, bf16: bool):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
@@ -182,25 +238,33 @@ class Trainer:
         with self._autocast(self.d_bf16):
             return self.discriminator(x.to(plain_dtype(x)))
 
-    @staticmethod
-    def _update(opt: torch.optim.Optimizer, model: nn.Module,
+    def _update(self, opt: torch.optim.Optimizer, model: nn.Module,
                 loss: torch.Tensor) -> None:
-        """Gradients of ``loss`` for ``model``'s parameters alone, left in
-        their ``.grad``, then one optimizer step."""
+        """Gradients of ``loss`` for ``model``'s parameters alone, averaged
+        over the ranks and left in their ``.grad``, then one optimizer
+        step."""
         params = [p for p in model.parameters() if p.requires_grad]
         for p, g in zip(params, torch.autograd.grad(loss, params)):
             p.grad = g
+        all_reduce_grads_(params, self.mesh)
         opt.step()
 
     # ------------------------------------------------------------------
     def train_step(self, batch: Batch,
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
-        """One G and one D update.  ``generator`` draws the penalty's
-        interpolation weights (default: the trainer's own).  Returns the
-        step's losses as 0-dim tensors on the device (reading them waits
-        for the device); each parameter's ``.grad`` holds the gradient the
-        step applied."""
+        """One G and one D update on a global batch, of which this rank
+        takes its rows.  ``generator`` draws the penalty's interpolation
+        weights (default: the trainer's own).  Returns the step's losses,
+        means over the ranks, as 0-dim tensors on the device (reading them
+        waits for the device); each parameter's ``.grad`` holds the
+        gradient the step applied."""
+        return self._local_step(shard_batch(batch, self.mesh), generator)
+
+    def _local_step(self, batch: Batch,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """:meth:`train_step` on this rank's rows of the global batch."""
         lr_img = self._to_device(batch["lr"])
         hr_img = self._to_device(batch["hr"])
         metrics: Dict[str, torch.Tensor] = {}
@@ -209,7 +273,9 @@ class Trainer:
             self._d_step(hr_img, sr.detach(),
                          generator or self.alpha_generator, metrics)
         self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        means = all_reduce_sums(metrics.values(), self.mesh) / self.mesh.world
+        return {k: m.to(v.dtype)
+                for (k, v), m in zip(metrics.items(), means.unbind())}
 
     def _g_step(self, lr_img: torch.Tensor, hr_img: torch.Tensor,
                 metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -247,8 +313,10 @@ class Trainer:
             relativistic=gan.relativistic)
         objective = loss
         if gan.gan_type == "wgan-gp":
-            alpha = gan_losses.interpolation_weights(hr_img.shape[0],
-                                                     generator, self.device)
+            mesh = self.mesh  # the global batch's draws, this rank's rows
+            alpha = gan_losses.interpolation_weights(
+                hr_img.shape[0] * mesh.world, generator,
+                self.device)[mesh.rank::mesh.world]
             gp = gan_losses.gradient_penalty(self._d, hr_img, sr, alpha)
             gp_weight = gan.lambda_gp + (1.0 if gan.gp_inner_backward
                                          else 0.0)
@@ -306,43 +374,63 @@ class Trainer:
 
     def validate(self, max_batches: Optional[int] = None) -> Dict[str, float]:
         """Means of :meth:`_eval_step`'s metrics over the test set (its
-        first ``max_batches`` batches), each image counted once."""
-        cfg = self.cfg
+        first ``max_batches`` batches of ``cfg.data.test_batch_size``
+        images), each image counted once: each rank sweeps its stride of
+        the images, and the sums and the count are added over the ranks
+        after the sweep, so a rank with fewer images waits for the others
+        only there."""
+        cfg, mesh = self.cfg, self.mesh
         dataset = build_test_dataset(cfg.data, cfg.scale)
-        loader = DataLoader(dataset, cfg.data.test_batch_size, shuffle=False,
-                            drop_last=False, num_workers=cfg.data.num_workers)
-        sums: Dict[str, torch.Tensor] = {}
+        if max_batches is not None:
+            dataset = _First(dataset, max_batches * cfg.data.test_batch_size)
+        local_batch = -(-cfg.data.test_batch_size // mesh.world)
+        loader = DataLoader(dataset, local_batch, shuffle=False,
+                            drop_last=False,
+                            num_workers=cfg.data.num_workers,
+                            shard_index=mesh.rank, shard_count=mesh.world)
+        keys = EVAL_METRICS + (LPIPS_METRICS if cfg.val_lpips else ())
+        sums = {k: torch.zeros((), dtype=torch.float64, device=self.device)
+                for k in keys}
         count = 0
         feed = device_prefetch(iter(loader), self.device)
         try:
-            for i, batch in enumerate(feed):
-                if max_batches is not None and i >= max_batches:
-                    break
+            for batch in feed:
                 for k, v in self._eval_step(batch).items():
-                    total = v.double().sum()
-                    sums[k] = sums[k] + total if k in sums else total
+                    sums[k] = sums[k] + v.double().sum()
                 count += batch["lr"].shape[0]
         finally:
             feed.close()
-        return {k: float(v) / max(count, 1) for k, v in sums.items()}
+        totals = all_reduce_sums(list(sums.values()) + [count], mesh).tolist()
+        return {k: v / max(totals[-1], 1) for k, v in zip(keys, totals)}
 
     # ------------------------------------------------------------------
     # The epoch loop with plateau backtracking
     # ------------------------------------------------------------------
+    def _save(self, state: Dict[str, Any], path: str) -> None:
+        """``torch.save`` on rank 0, then a barrier, so that any rank may
+        read the file next."""
+        if self.mesh.is_main:
+            torch.save(state, path)
+        self.mesh.barrier()
+
     def _save_best(self, path: str) -> None:
         state = {"generator": self.generator.state_dict()}
         if self.discriminator is not None:
             state["discriminator"] = self.discriminator.state_dict()
-        torch.save(state, path)
+        self._save(state, path)
 
     def train(self, num_steps: Optional[int] = None) -> Dict[str, float]:
         """Train for ``cfg.num_epochs`` epochs and return the last
         validation sweep's metrics, or, with ``num_steps``, stop after that
         many steps (the epoch cap lifted) and return the last step's
         losses."""
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
         os.makedirs(cfg.model_dir, exist_ok=True)
         dataset = build_train_dataset(cfg.data, cfg.scale)
+        if cfg.data.batch_size % mesh.world:
+            raise ValueError(
+                f"batch_size {cfg.data.batch_size} (the global batch) does "
+                f"not split over {mesh.world} ranks")
 
         # the reference's maxima init: 0 / 0 / 10000
         best = {"psnr": 0.0, "ssim": 0.0, "ergas": 10000.0}
@@ -361,12 +449,14 @@ class Trainer:
         while epoch < max_epochs:
             lr_now = get_lr(self.g_opt)
             if lr_now < cfg.optim.lr_floor:  # the reference's stop rule
-                print(f"lr {lr_now:.2e} below floor; stopping")
+                if mesh.is_main:
+                    print(f"lr {lr_now:.2e} below floor; stopping")
                 break
-            loader = DataLoader(dataset, cfg.data.batch_size, shuffle=True,
-                                drop_last=True,
+            loader = DataLoader(dataset, cfg.data.batch_size // mesh.world,
+                                shuffle=True, drop_last=True,
                                 num_workers=cfg.data.num_workers,
-                                seed=cfg.seed + epoch)
+                                seed=cfg.seed + epoch, shard_index=mesh.rank,
+                                shard_count=mesh.world)
             feed = device_prefetch(iter(loader), self.device)
             epoch_t0 = time.time()
             waited = 0.0
@@ -377,24 +467,27 @@ class Trainer:
                     waited += time.time() - wait_t0
                     if batch is None:
                         break
-                    metrics = self.train_step(batch)
+                    metrics = self._local_step(batch)
                     step_count += 1
                     if step_count % 50 == 0:
                         m = {k: float(v) for k, v in metrics.items()}
                         rate = (step_count * cfg.data.batch_size
                                 * cfg.data.crop_size ** 2 / 1e6
                                 / (time.time() - t0))
-                        self.logger.print_format_results(
-                            "train", {"epoch": epoch, "step": step_count,
-                                      "MP/s": rate, **m})
+                        self._log("train", {"epoch": epoch,
+                                            "step": step_count,
+                                            "MP/s": rate, **m})
                     if (cfg.sample_interval
                             and step_count % cfg.sample_interval == 0):
-                        # the current batch against its bicubic twin
+                        # the current global batch against its bicubic twin
                         q = self._eval_step(batch)
-                        self.logger.print_format_results(
-                            "train", {"epoch": epoch, "step": step_count,
-                                      **{k: float(v.mean())
-                                         for k, v in q.items()}})
+                        sums = all_reduce_sums([v.sum() for v in q.values()],
+                                               mesh)
+                        n = cfg.data.batch_size
+                        self._log("train", {"epoch": epoch,
+                                            "step": step_count,
+                                            **{k: float(v) / n for k, v
+                                               in zip(q, sums.tolist())}})
                     if num_steps is not None and step_count >= num_steps:
                         return {k: float(v) for k, v in metrics.items()}
             finally:
@@ -406,7 +499,7 @@ class Trainer:
             # it covers the whole test set unless cfg.val_max_batches caps it
             val = self.validate(max_batches=cfg.val_max_batches)
             last_metrics = val
-            self.logger.print_format_results("val", {"epoch": epoch, **val})
+            self._log("val", {"epoch": epoch, **val})
             for k in ("loss_G", "loss_D"):
                 if k in metrics:
                     self.history[k].append(float(metrics[k]))
@@ -445,12 +538,14 @@ class Trainer:
                 # always, the D lr only once the lr before the halving is
                 # under 1e-4; rewind the epoch counter to just after the
                 # best epoch and pop the stale metric history (the loss
-                # curves stay, as in the reference).
+                # curves stay, as in the reference).  Every rank reads what
+                # rank 0 wrote before the barrier in _save.
                 if os.path.exists(best_path):
                     prev = torch.load(best_path, map_location=self.device,
                                       weights_only=True)
                     self.generator.load_state_dict(prev["generator"])
-                else:
+                    self._replicate()
+                elif mesh.is_main:
                     print("plateau: no best checkpoint yet "
                           "(no finite-improvement epoch so far)")
                 cur_lr = get_lr(self.g_opt)
@@ -458,7 +553,9 @@ class Trainer:
                 if self.d_opt is not None and cur_lr < 1e-4:
                     set_lr(self.d_opt, get_lr(self.d_opt) * 0.5)
                 bad_epochs = 0
-                print(f"plateau: reloaded best, lr -> {cur_lr * 0.5:.2e}")
+                if mesh.is_main:
+                    print(f"plateau: reloaded best, lr -> "
+                          f"{cur_lr * 0.5:.2e}")
                 if cfg.optim.plateau_rewind:
                     epoch = best_epoch + 1
                     for k in ("psnr", "ssim", "ergas"):
@@ -471,7 +568,8 @@ class Trainer:
     def save_checkpoint(self, epoch: int,
                         include_optimizer: bool = False) -> str:
         """G and D weights (D's running statistics included) and the step
-        count into ``cfg.model_dir``; optimizer states on request."""
+        count into ``cfg.model_dir``; optimizer states on request.  Rank 0
+        writes; every rank returns the path once the file is there."""
         os.makedirs(self.cfg.model_dir, exist_ok=True)
         path = os.path.join(self.cfg.model_dir, f"ckpt_epoch_{epoch}.pt")
         state = {"generator": self.generator.state_dict(), "step": self.step}
@@ -481,11 +579,12 @@ class Trainer:
             state["g_opt"] = self.g_opt.state_dict()
             if self.d_opt is not None:
                 state["d_opt"] = self.d_opt.state_dict()
-        torch.save(state, path)
+        self._save(state, path)
         return path
 
     def load_checkpoint(self, path: str) -> None:
-        """Restore what :meth:`save_checkpoint` wrote."""
+        """Restore what :meth:`save_checkpoint` wrote (rank 0's copy on
+        every rank)."""
         state = torch.load(path, map_location=self.device, weights_only=True)
         self.generator.load_state_dict(state["generator"])
         if self.discriminator is not None and "discriminator" in state:
@@ -495,4 +594,5 @@ class Trainer:
         if self.d_opt is not None and "d_opt" in state:
             self.d_opt.load_state_dict(state["d_opt"])
         self.step = state["step"]
+        self._replicate()
 

@@ -355,11 +355,20 @@ def _diffusion_trainer(run, **kwargs):
 
 
 def _bicubic01(u8):
+    """The conditioner of an ``.npy`` image: the port's 8-bit resize."""
     from sradsgan_tpu_torch.ops.resize import resize_uint8
 
     h, w = u8.shape[:2]
     return resize_uint8(torch.from_numpy(u8.astype(np.float32)), h * SCALE,
                         w * SCALE, "bicubic").numpy()[None] / 255.0
+
+
+def _pil_bicubic01(u8):
+    """The conditioner of an image Pillow opens: Pillow's resize, as the
+    JAX command makes it (``sradsgan_tpu/cli.py:252-254``)."""
+    pil = Image.fromarray(u8).resize((u8.shape[1] * SCALE,
+                                      u8.shape[0] * SCALE), Image.BICUBIC)
+    return np.asarray(pil, np.float32)[None] / 255.0
 
 
 def test_diffusion_train_writes_what_validate_and_sample_read(tmp_path,
@@ -393,11 +402,12 @@ def test_diffusion_train_writes_what_validate_and_sample_read(tmp_path,
     trainer = _diffusion_trainer(run)
     trainer.load_checkpoint(ckpt)
     want = trainer.super_resolution(
-        _bicubic01(np.round(lr01 * 255).astype(np.uint8)))[0]
+        _pil_bicubic01(np.round(lr01 * 255).astype(np.uint8)))[0]
     np.testing.assert_array_equal(got, _truncated(want))
 
 
-def test_diffusion_sample_carries_a_jax_unet_across(tmp_path, capsys):
+def test_diffusion_sample_carries_a_jax_unet_across(tmp_path, capsys,
+                                                    monkeypatch):
     """``--weights``: the JAX UNet's params as ``.npz`` through
     ``unet_state_dict``; the SR is the bridged trainer's own sample, on the
     port's bicubic re-upsample, which lies within one level of PIL's (the
@@ -417,6 +427,15 @@ def test_diffusion_sample_carries_a_jax_unet_across(tmp_path, capsys):
     npz = tmp_path / "unet.npz"
     save_npz(str(npz), params)
     image, lr01 = _image(tmp_path, seed=3)
+    from sradsgan_tpu_torch.diffusion.trainer import DiffusionTrainer
+    conditioners = []
+    sample = DiffusionTrainer.super_resolution
+
+    def keep_conditioner(self, bc01, *args, **kwargs):
+        conditioners.append(bc01)
+        return sample(self, bc01, *args, **kwargs)
+    monkeypatch.setattr(DiffusionTrainer, "super_resolution",
+                        keep_conditioner)
     assert cli.main(["diffusion-sample", "--weights", str(npz), "--image",
                      image, "--out-dir", str(tmp_path / "s"), "--save-dir",
                      str(tmp_path / "run")] + DIFFUSION) == 0
@@ -424,11 +443,9 @@ def test_diffusion_sample_carries_a_jax_unet_across(tmp_path, capsys):
     trainer = _diffusion_trainer(tmp_path / "run")
     trainer.unet.load_state_dict(unet_state_dict(
         params, channel_mults=(1, 2), res_blocks=1))
-    u8 = np.round(lr01 * 255).astype(np.uint8)
-    bc01 = _bicubic01(u8)
-    pil = Image.fromarray(u8).resize((u8.shape[1] * SCALE,
-                                      u8.shape[0] * SCALE), Image.BICUBIC)
-    assert np.abs(bc01[0] * 255 - np.asarray(pil)).max() <= 1.0 + 1e-4
+    # the png's conditioner is Pillow's, as in the JAX command
+    bc01 = _pil_bicubic01(np.round(lr01 * 255).astype(np.uint8))
+    np.testing.assert_array_equal(conditioners[0], bc01)
     want = trainer.super_resolution(bc01)[0]
     np.testing.assert_array_equal(got, _truncated(want))
 
@@ -475,6 +492,7 @@ def test_diffusion_sample_runs_without_pillow(tmp_path, monkeypatch,
                                            dtype=np.uint8)
     np.save(tmp_path / "lr.npy", u8)
     np.save(tmp_path / "bad.npy", u8.astype(np.float32))
+    pil01 = _pil_bicubic01(u8)
     monkeypatch.setitem(sys.modules, "PIL", None)  # import raises
     argv = ["diffusion-sample", "--out-dir", str(tmp_path / "s"),
             "--save-dir", str(tmp_path / "run")] + DIFFUSION
@@ -485,6 +503,8 @@ def test_diffusion_sample_runs_without_pillow(tmp_path, monkeypatch,
     path = json.loads(captured.out.strip().splitlines()[-1])["sr"]
     assert path.endswith("GDP_SR_lr_x2.npy")
     assert "Pillow does not import" in captured.err
-    want = _diffusion_trainer(tmp_path / "run").super_resolution(
-        _bicubic01(u8))[0]
+    bc01 = _bicubic01(u8)
+    # the port's resize stands within one level of Pillow's
+    assert np.abs(bc01 - pil01).max() * 255 <= 1.0 + 1e-4
+    want = _diffusion_trainer(tmp_path / "run").super_resolution(bc01)[0]
     np.testing.assert_array_equal(np.load(path), np.clip(want, 0, 1))

@@ -77,7 +77,8 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
     ``train`` with its final table, both with LPIPS, ``train --model
     sragan``, on the synthetic set at tiny sizes, ``export`` of a tiny
     HAT read back by ``serving.load_exported``, and ``diffusion-train``
-    with the diffusion modules."""
+    with the diffusion modules, the data mesh and the ranks' worker of the
+    data-parallel checks."""
     tiny = json.dumps({"base_filters": 16, "n_groups": 1, "n_blocks": 1})
     flags = ["--device", "cpu", "--data", "synthetic", "--scale", "2",
              "--crop-size", "32", "--lpips", "--save-dir", str(tmp_path),
@@ -132,6 +133,8 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
             "import sradsgan_tpu_torch.diffusion.unet\n"
             "import sradsgan_tpu_torch.diffusion.config\n"
             "import sradsgan_tpu_torch.diffusion.trainer\n"
+            "import sradsgan_tpu_torch.parallel.mesh\n"
+            "import sradsgan_tpu_torch.tools.dp_check\n"
             f"for argv in {commands!r}:\n"
             "    assert sradsgan_tpu_torch.cli.main(argv) == 0\n"
             "import numpy as np\n"

@@ -294,7 +294,7 @@ def test_load_config_reads_a_jax_config_and_ignores_the_tpu_knobs(tmp_path):
 
 @pytest.mark.parametrize("where", ["top", "data"])
 def test_load_config_refuses_an_unknown_key(tmp_path, where):
-    """Only the JAX package's three TPU knobs are ignored: a misspelt key
+    """Only the JAX package's two TPU knobs are ignored: a misspelt key
     raises instead of silently leaving the default in place."""
     raw = {"scale": 4, "data": {"crop_size": 64, "device_degrade": True}}
     (raw if where == "top" else raw["data"])["crop_sise"] = 32
