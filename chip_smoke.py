@@ -126,7 +126,19 @@ Phases, each of which raises (exit code 1) on failure:
    ``DiffusionTrainer``, against the one-process card step (launches,
    losses, every gradient, the D's running statistics) and bit-equal to
    each other after three steps; with more than one card, the same with
-   one NCCL rank a card, the step then timed in as many turns as on one.
+   one NCCL rank a card, the step then timed in as many turns as on one;
+14. halo-tiled inference and weights without JAX: the full-width x4
+   flagship (seeded fan-in weights, float32) on a 270 x 250 LR scene, 25
+   tiles of 70^2 in chunks of 16: (a) one process on the card against
+   ``tiled_super_resolve`` on the CPU (SLICE_TOL) with exact launches; (b)
+   the ``tiled`` scenario of phase 13's spawns (two gloo ranks on this
+   card; with more cards one NCCL rank a card): every rank's whole scene
+   bit-equal to the others' and to (a)'s or within TOL[float32], each
+   rank's launches exact; (c) rank 0 alone against the ranks over
+   alternating turns; (d) a seeded flagship and HAT written as the
+   reference's ``.pkl`` and read back by ``tools/from_reference.py``, and
+   a torchvision-layout VGG19 ``.pth`` read by ``load_vgg19``, each
+   bit-equal on the card to the module it came from.
 
 It prints the kernels' record as one JSON line before the last, and ends
 with ``{"ok": true, "device": {...}}``.
@@ -2775,7 +2787,9 @@ def phase_data_parallel(smi: str) -> tuple:
                           "unet_kwargs": diff_ref["unet_kwargs"],
                           "weights": os.path.join(work, "unet.pt"),
                           "seed": DP_SEED, "steps": DP_STEPS,
-                          "draw_seed": DP_DRAW_SEED}}
+                          "draw_seed": DP_DRAW_SEED},
+            # phase_tiled_and_weights (b) and (d) hold it
+            "tiled": tiled_scenario(work)}
         faults = []
         t0 = time.perf_counter()
         ranks = dp_check.run_ranks(
@@ -2789,12 +2803,14 @@ def phase_data_parallel(smi: str) -> tuple:
                       gloo_took_cuda_tensors=True)  # the all-reduces ran
         out["gloo2"] = report
         launches_gloo2 = ranks[0]["gan"]["launches"][0]
+        tiled_runs = {"gloo2": [r["tiled"] for r in ranks]}
         cards = torch.cuda.device_count()
         if cards > 1:
-            split = [dict(sc, turns=len(DP_TURNS),
+            split = [sc if sc["kind"] == "tiled" else
+                     dict(sc, turns=len(DP_TURNS),
                           timed_steps=DP_TIMED_STEPS)
-                     for sc in scenarios.values() if sc["batch"] % cards
-                     == 0]
+                     for sc in scenarios.values()
+                     if sc.get("batch", cards) % cards == 0]
             t0 = time.perf_counter()
             ranks = dp_check.run_ranks(
                 {"device": "cuda", "backend": "nccl", "threads": 4,
@@ -2806,6 +2822,7 @@ def phase_data_parallel(smi: str) -> tuple:
             faults += bad
             report.update(backend="nccl", seconds=time.perf_counter() - t0,
                           scenarios=[sc["name"] for sc in split])
+            tiled_runs[f"nccl{cards}"] = [r["tiled"] for r in ranks]
             if "gan_step_ms" in report:
                 one = out["nccl1"]["median_ms"]["plain"]
                 speedup = one / report["gan_step_ms"]
@@ -2821,7 +2838,241 @@ def phase_data_parallel(smi: str) -> tuple:
             fail("data parallel: " + "; ".join(faults))
     out["seconds"] = time.perf_counter() - t_start
     print(f"data parallel phase: {out['seconds']:.1f} s")
-    return out, launches_nccl1, launches_gloo2
+    return out, launches_nccl1, launches_gloo2, tiled_runs
+
+
+# phase_tiled_and_weights: an LR scene of 270 x 250 cut into 25 halo tiles
+# of 54 + 2 * 8 pixels, in chunks of 16: two chunks, the second a tail of 9
+# (padded to 10 on two ranks, to 12 on four)
+TILED = {"model": "sradsgan", "scale": 4, "seed": 31, "height": 270,
+         "width": 250, "tile": 54, "halo": 8, "batch_tiles": 16}
+TILED_TURNS = ["one", "mesh", "mesh", "one"] * 3  # alternating timing
+TILED_WEIGHT_SEED = 9
+
+
+def tiled_flagship() -> torch.nn.Module:
+    """The full-width x4 flagship on the CPU in eval mode: seeded fan-in
+    weights, both attention gains 0.5."""
+    model = create_generator("sradsgan", TILED["scale"], seed=0)
+    fan_in_init(model, seed=TILED_WEIGHT_SEED)
+    with torch.no_grad():
+        model.GAB_UP.ca.gamma.fill_(0.5)
+        model.GAB_UP.sa.gamma.fill_(0.5)
+    return model.eval()
+
+
+def tiled_scenario(work: str) -> dict:
+    """The ranks' ``tiled`` scenario (``tools/dp_check.py``) of
+    :func:`tiled_flagship`, its weights written to ``work``."""
+    path = os.path.join(work, "tiled_flagship.pt")
+    torch.save(tiled_flagship().state_dict(), path)
+    return dict(TILED, name="tiled", kind="tiled", weights=path,
+                turns=TILED_TURNS)
+
+
+def _tiled_chunks(world: int) -> int:
+    """How many chunks a world of ``world`` ranks forwards the scene in:
+    each chunk the largest multiple of ``world`` up to batch_tiles."""
+    tiles = (-(-TILED["height"] // TILED["tile"])
+             * -(-TILED["width"] // TILED["tile"]))
+    chunk = max(TILED["batch_tiles"] - TILED["batch_tiles"] % world, world)
+    return -(-tiles // chunk)
+
+
+def _hold_tiled_ranks(ranks: list, want: np.ndarray, model, label: str,
+                      smi: str) -> tuple:
+    """(report, faults) of the ranks' ``tiled`` results against (a)'s
+    scene: every rank's scene bit-equal to rank 0's, rank 0's bit-equal to
+    (a)'s or within TOL[float32] of its max|ref|, each rank's launches
+    those of its chunks' forwards; rank 0's turns timed."""
+    world = len(ranks)
+    expected = forward_launches(model, forwards=_tiled_chunks(world))
+    faults = []
+    scenes = [r["scene"].numpy() for r in ranks]
+    ranks_equal = all(np.array_equal(sc, scenes[0]) for sc in scenes[1:])
+    if not ranks_equal:
+        faults.append("the ranks' scenes differ")
+    bit_equal = bool(np.array_equal(scenes[0], want))
+    rel = float(np.abs(scenes[0] - want).max() / np.abs(want).max())
+    if not (bit_equal or rel <= TOL[torch.float32]):
+        faults.append(f"rank 0's scene off (a)'s by {rel:.3e} of max|ref|, "
+                      f"over {TOL[torch.float32]:.0e}")
+    for rank, r in enumerate(ranks):
+        if r["launches"] != expected:
+            faults.append(f"rank {rank} launched {r['launches']}, not "
+                          f"{expected}")
+    turns = ranks[0]["turn_ms"]
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    report = {"ranks": world, "bit_equal_to_one_process": bit_equal,
+              "max_rel_err": rel, "launches_rank0": ranks[0]["launches"],
+              "turn_ms": turns, "median_ms": med,
+              "speedup": med["one"] / med["mesh"]}
+    print(f"tiled {label}: the ranks' scenes bit-equal {ranks_equal}; "
+          f"against (a) "
+          f"bit-equal {bit_equal}, max|d| {rel:.3e} of max|ref| (bar "
+          f"{TOL[torch.float32]:.0e}); rank 0 launched "
+          f"{ranks[0]['launches']}; rank 0 alone vs {world} ranks over "
+          f"alternating turns {TILED_TURNS}: {turns['one']} / "
+          f"{turns['mesh']} ms, medians {med['one']:.1f} / "
+          f"{med['mesh']:.1f} ms, {report['speedup']:.3f}x [{smi}]")
+    return report, [f"tiled {label}: {f}" for f in faults]
+
+
+def _torchvision_vgg19(seed: int) -> torch.nn.Module:
+    """torchvision's ``vgg19().features[:12]`` layout (``features.{i}``),
+    seeded weights."""
+    torch.manual_seed(seed)
+    m = torch.nn.Module()
+    c = torch.nn.Conv2d
+    m.features = torch.nn.Sequential(
+        c(3, 64, 3, padding=1), torch.nn.ReLU(), c(64, 64, 3, padding=1),
+        torch.nn.ReLU(), torch.nn.MaxPool2d(2, 2), c(64, 128, 3, padding=1),
+        torch.nn.ReLU(), c(128, 128, 3, padding=1), torch.nn.ReLU(),
+        torch.nn.MaxPool2d(2, 2), c(128, 256, 3, padding=1), torch.nn.ReLU())
+    return m.eval()
+
+
+def _weights_check(smi: str) -> dict:
+    """(d): a seeded full-width flagship and HAT written as the reference's
+    ``.pkl`` state dicts (HAT with the reference's two index buffers),
+    read back by ``tools/from_reference.py``: each forward on the card
+    bit-equal to the seeded module's; a torchvision-layout VGG19 ``.pth``
+    through ``load_vgg19`` (``convert_torch.torchvision_state_dict``): its
+    features bit-equal to the module's, its weights those of the ``.npz``
+    that ``convert_torch`` writes."""
+    import warnings
+
+    from sradsgan_tpu_torch.losses.vgg import load_vgg19
+    from sradsgan_tpu_torch.models.hat import rpi_oca, rpi_sa
+    from sradsgan_tpu_torch.tools import convert_torch, from_reference
+
+    x = np.random.default_rng(4).random((2, 54, 54, 3), dtype=np.float32)
+    hat = create_generator("hat", 4, seed=0)
+    zoo_init(hat, seed=5)
+    hat_state = dict(hat.state_dict(), relative_position_index_SA=(
+        torch.from_numpy(rpi_sa(hat.window))), relative_position_index_OCA=(
+        torch.from_numpy(rpi_oca(hat.window, 0.5))))
+    out, faults = {}, []
+    with tempfile.TemporaryDirectory() as work:
+        for name, module, state in (
+                ("sradsgan", tiled_flagship(), None), ("hat", hat, hat_state)):
+            path = os.path.join(work, f"{name}_generator_param.pkl")
+            torch.save(state or module.state_dict(), path)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                loaded = from_reference.load_reference(name, path, 4,
+                                                       device="cuda")
+            want = forward_numpy(module.cuda().eval(), x, "cuda")
+            got = forward_numpy(loaded, x, "cuda")
+            equal = bool(np.array_equal(got, want))
+            out[name] = {"bit_equal": equal,
+                         "max_abs_err": float(np.abs(got - want).max()),
+                         "warnings": [str(w.message) for w in caught]}
+            if not equal:
+                faults.append(f"{name} read from the reference layout is "
+                              f"off by {out[name]['max_abs_err']:.3e}")
+        tv = _torchvision_vgg19(seed=7)
+        pth = os.path.join(work, "vgg19.pth")
+        torch.save(tv.state_dict(), pth)
+        vgg = load_vgg19(pth, device="cuda")
+        npz = os.path.join(work, "vgg19.npz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_torch.main(["vgg19", pth, npz])
+        via_npz = load_vgg19(npz, device="cuda").state_dict()
+        xv = torch.from_numpy(np.random.default_rng(5).random(
+            (2, 3, 216, 216), dtype=np.float32)).cuda()
+        with torch.no_grad():
+            equal = bool(torch.equal(vgg(xv), tv.cuda().features(xv)))
+        npz_equal = all(torch.equal(v, via_npz[k])
+                        for k, v in vgg.state_dict().items())
+        out["vgg19_pth"] = {"bit_equal": equal, "npz_equal": npz_equal}
+        if not (equal and npz_equal):
+            faults.append(f"VGG19 from torchvision's layout: features "
+                          f"bit-equal {equal}, weights of the .npz "
+                          f"{npz_equal}")
+    print(f"weights (d): {json.dumps(out)} [{smi}]")
+    if faults:
+        fail("weights: " + "; ".join(faults))
+    return out
+
+
+def phase_tiled_and_weights(smi: str, tiled_runs: dict | None = None
+                            ) -> tuple:
+    """Halo-tiled inference of a 270 x 250 LR scene (TILED) by the
+    full-width x4 flagship (:func:`tiled_flagship`, float32, TF32 off),
+    and reference and torchvision weights read without JAX:
+
+    (a) one process on the card: the scene within SLICE_TOL of max|ref| of
+    ``tiled_super_resolve`` on the CPU, the launches exactly K1, K2 48 and
+    K3 once a chunk;
+    (b) the ranks of ``tiled_runs`` (phase_data_parallel's spawns: two gloo
+    ranks on this card and, with more cards, one NCCL rank a card; spawned
+    here when the phase runs alone): each rank's whole scene bit-equal to
+    the others', and to (a)'s or within TOL[float32] of max|ref| (the
+    report says which), each rank's launches those of its chunks;
+    (c) rank 0 alone against every rank over alternating turns (timed in
+    the ranks);
+    (d) :func:`_weights_check`.
+    Returns the report and (a)'s launches."""
+    from sradsgan_tpu_torch.evaluation.tiled import tiled_super_resolve
+    from sradsgan_tpu_torch.tools import dp_check
+
+    t_start = time.perf_counter()
+    cpu_model = tiled_flagship()
+    model = copy.deepcopy(cpu_model).cuda()
+    image = dp_check.tiled_scene(TILED["seed"], TILED["height"],
+                                 TILED["width"])
+    args = (TILED["scale"], TILED["tile"], TILED["halo"],
+            TILED["batch_tiles"])
+    reset_launches()
+    scene = tiled_super_resolve(model, image, *args, device="cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expected = forward_launches(model, forwards=_tiled_chunks(1))
+    if launches != expected:
+        fail(f"tiled (a) launched {launches}, not {expected}")
+    shape = (TILED["height"] * 4, TILED["width"] * 4, 3)
+    if scene.shape != shape or not np.isfinite(scene).all():
+        fail(f"tiled (a): scene {scene.shape} (want {shape}), finite="
+             f"{np.isfinite(scene).all()}")
+    t0 = time.perf_counter()
+    ref = tiled_super_resolve(cpu_model, image, *args, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(scene - ref).max())
+    bound = SLICE_TOL * float(np.abs(ref).max())
+    print(f"tiled (a) one process, 270 x 250 -> {shape[0]} x {shape[1]}, 25 "
+          f"tiles in chunks of 16: launches {launches}; against the CPU "
+          f"plain path max|d| {err:.3e} <= {bound:.3e} ({SLICE_TOL:.0e} * "
+          f"max|ref|); the CPU took {cpu_s:.1f} s [{smi}]")
+    if not err <= bound:
+        fail("tiled (a): the card's scene disagrees with the CPU's")
+    out = {"card": smi, "one_process": {"launches": launches,
+                                        "max_abs_err": err, "bound": bound,
+                                        "cpu_s": cpu_s}}
+    if tiled_runs is None:
+        with tempfile.TemporaryDirectory() as work:
+            sc = tiled_scenario(work)
+            tiled_runs = {"gloo2": [r["tiled"] for r in dp_check.run_ranks(
+                {"device": "cuda:0", "backend": "gloo", "threads": 4,
+                 "scenarios": [sc]}, 2, os.path.join(work, "gloo2"),
+                DP_DEADLINE_S)]}
+            cards = torch.cuda.device_count()
+            if cards > 1:
+                tiled_runs[f"nccl{cards}"] = [
+                    r["tiled"] for r in dp_check.run_ranks(
+                        {"device": "cuda", "backend": "nccl", "threads": 4,
+                         "scenarios": [sc]}, cards,
+                        os.path.join(work, "nccl"), DP_DEADLINE_S)]
+    faults = []
+    for label, ranks in tiled_runs.items():
+        out[label], bad = _hold_tiled_ranks(ranks, scene, model, label, smi)
+        faults += bad
+    if faults:
+        fail("; ".join(faults))
+    out["weights"] = _weights_check(smi)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"tiled and weights phase: {out['seconds']:.1f} s")
+    return out, launches
 
 
 def main() -> int:
@@ -2848,7 +3099,8 @@ def main() -> int:
     hat = phase_hat(smi)
     exported = phase_export(smi)
     diffusion = phase_diffusion(smi)
-    data_parallel, nccl1, gloo2 = phase_data_parallel(smi)
+    data_parallel, nccl1, gloo2, tiled_runs = phase_data_parallel(smi)
+    tiled, tiled_launches = phase_tiled_and_weights(smi, tiled_runs)
     paths = {"serving": serving["launches"],
              "serving_fused": serving["fused_launches"],
              **{f"train_{k[len('launches_'):]}": v
@@ -2856,7 +3108,10 @@ def main() -> int:
              "cli_train_fused": cli_train["launches"],
              **eval_protocol.pop("launches_by_path"),
              **zoo.pop("launches_by_path"),
-             "train_ddp_nccl1": nccl1, "train_ddp_gloo2": gloo2}
+             "train_ddp_nccl1": nccl1, "train_ddp_gloo2": gloo2,
+             "tiled_one_process": tiled_launches,
+             **{f"tiled_{k}_rank0": v["launches_rank0"]
+                for k, v in tiled.items() if k.startswith(("gloo", "nccl"))}}
     never = [name for name in KERNELS
              if not any(path[name] for path in paths.values())]
     idle = [name for name in KERNELS if not cli_train["launches"][name]]
@@ -2880,7 +3135,8 @@ def main() -> int:
                       "eval_protocol": eval_protocol, "model_zoo": zoo,
                       "hat": hat, "export": exported,
                       "diffusion": diffusion,
-                      "data_parallel": data_parallel, "strips": plans,
+                      "data_parallel": data_parallel,
+                      "tiled_and_weights": tiled, "strips": plans,
                       "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

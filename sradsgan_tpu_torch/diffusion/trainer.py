@@ -95,7 +95,9 @@ class DiffusionTrainer:
         self.bf16 = bf16
         self.sched = Schedule.create(schedule, n_timestep, linear_start,
                                      linear_end)
-        self.logger = Logger("gdp", os.path.join(save_dir, "logs"))
+        # text lines only: the JAX trainer writes no summary either
+        self.logger = Logger("gdp", os.path.join(save_dir, "logs"),
+                             use_tensorboard=False)
         unet_kwargs = dict(unet_kwargs or {})
         unet_kwargs.setdefault("image_size", data_cfg.crop_size)
         self.unet = replicate(UNet(**unet_kwargs, seed=seed,

@@ -15,12 +15,15 @@ Weights.  The calibrated heads ship with the port
 package's).  The trunk weights come from the ``.npz`` that
 ``SRADSGAN_TPU_{ALEXNET,VGG16,SQUEEZENET}_NPZ`` names, the same files the
 JAX package reads (its flax layout, HWIO kernels; converted by
-``tools/from_jax.py:lpips_state_dict``).  Without one the trunk is drawn
-from a seeded LeCun-normal init: the score is then a self-consistent
-perceptual distance but not the published metric, and the evaluation marks
-it ``lpips*``.  That seeded trunk is not the JAX package's seeded trunk
-(the two draw from different generators), so uncalibrated scores of the two
-packages differ; with the same trunk weights they agree.
+``tools/from_jax.py:lpips_state_dict``), or from torchvision's ``.pth``
+itself where the variable names one
+(``tools/convert_torch.py:torchvision_state_dict``).  Without one the trunk
+is drawn from a seeded LeCun-normal init: the score is then a
+self-consistent perceptual distance but not the published metric, and the
+evaluation marks it ``lpips*``.  That seeded trunk is not the JAX
+package's seeded trunk (the two draw from different generators), so
+uncalibrated scores of the two packages differ; with the same trunk
+weights they agree.
 
 LPIPS always runs in float32, also when it is called under the trainer's
 bfloat16 autocast, as the JAX package runs it with ``dtype=None``.
@@ -160,12 +163,14 @@ class SqueezeNetFeatures(nn.Module):
         return taps
 
 
-# net -> (trunk class, env var of its weights, the JAX trunk's scope name)
+# net -> (trunk class, env var of its weights, the JAX trunk's scope name,
+# the torchvision network of a .pth file)
 NETS = {
-    "alex": (AlexNetFeatures, ALEXNET_WEIGHTS_ENV, "AlexNetFeatures_0"),
-    "vgg": (VGG16Features, VGG16_WEIGHTS_ENV, "VGG16Features_0"),
+    "alex": (AlexNetFeatures, ALEXNET_WEIGHTS_ENV, "AlexNetFeatures_0",
+             "alexnet"),
+    "vgg": (VGG16Features, VGG16_WEIGHTS_ENV, "VGG16Features_0", "vgg16"),
     "squeeze": (SqueezeNetFeatures, SQUEEZENET_WEIGHTS_ENV,
-                "SqueezeNetFeatures_0"),
+                "SqueezeNetFeatures_0", "squeezenet"),
 }
 
 
@@ -233,6 +238,7 @@ def load_lpips(net: str = "alex", device: torch.device | str = "cpu"
     """A fresh float32 :class:`LPIPS` on ``device`` with the bundled heads
     and the trunk of ``SRADSGAN_TPU_*_NPZ`` (else seeded), in eval mode;
     and whether that trunk was calibrated."""
+    from sradsgan_tpu_torch.tools.convert_torch import torchvision_state_dict
     from sradsgan_tpu_torch.tools.from_jax import (load_npz,
                                                    lpips_state_dict)
 
@@ -241,9 +247,13 @@ def load_lpips(net: str = "alex", device: torch.device | str = "cpu"
     with np.load(os.path.join(_WEIGHTS_DIR, f"lpips_{net}_v01.npz")) as heads:
         tree = {k: heads[k] for k in heads.files}
     path = _trunk_path(net)
-    if path:
-        tree[NETS[net][2]] = load_npz(path)
     state = model.state_dict()
+    if path and path.endswith(".pth"):  # torchvision's own file
+        trunk = torchvision_state_dict(NETS[net][3], torch.load(
+            path, map_location="cpu", weights_only=True))
+        state.update({f"net.{k}": v for k, v in trunk.items()})
+    elif path:
+        tree[NETS[net][2]] = load_npz(path)
     state.update(lpips_state_dict(tree, net))
     model.load_state_dict(state)
     return model.to(device).eval(), path is not None

@@ -6,9 +6,11 @@ with no ImageNet normalization, as the reference feeds it.  The layers keep
 torchvision's indices (``features.0``, ``features.2``, ...), so a
 torchvision state dict loads as it is.
 
-Weights come from the ``.npz`` that ``SRADSGAN_TPU_VGG19_NPZ`` names (the
-JAX package's layout, ``{conv1_1,...}/{kernel,bias}`` with HWIO kernels,
-written by ``sradsgan_tpu/tools/convert_torch.py``).  Without it the
+Weights come from the file that ``SRADSGAN_TPU_VGG19_NPZ`` names: the
+JAX package's ``.npz`` (``{conv1_1,...}/{kernel,bias}`` with HWIO kernels,
+written by either package's ``tools/convert_torch.py``), or torchvision's
+``.pth`` itself (``tools/convert_torch.py:torchvision_state_dict``).
+Without it the
 features are drawn from a seeded LeCun-normal init, as the JAX trainer
 falls back to a fixed-seed init: the loss then still regularizes structure
 but its values are not the reference's.  The extractor is fixed: its
@@ -62,11 +64,18 @@ class VGG19Features(nn.Module):
 def load_vgg19(path: Optional[str] = None, *, seed: int = 0,
                device: torch.device | str = "cpu") -> VGG19Features:
     """The extractor, with the weights of ``path`` (default: the file
-    ``SRADSGAN_TPU_VGG19_NPZ`` names) when there is one, else seeded."""
+    ``SRADSGAN_TPU_VGG19_NPZ`` names; a ``.pth`` is torchvision's state
+    dict, anything else the ``.npz``) when there is one, else seeded."""
+    from sradsgan_tpu_torch.tools.convert_torch import torchvision_state_dict
     from sradsgan_tpu_torch.tools.from_jax import load_npz, vgg19_state_dict
 
     model = VGG19Features(seed=seed)
     path = path or os.environ.get(DEFAULT_WEIGHTS_ENV)
     if path and os.path.exists(path):
-        model.load_state_dict(vgg19_state_dict(load_npz(path)))
+        if path.endswith(".pth"):
+            state = torchvision_state_dict("vgg19", torch.load(
+                path, map_location="cpu", weights_only=True))
+        else:
+            state = vgg19_state_dict(load_npz(path))
+        model.load_state_dict(state)
     return model.to(device)

@@ -22,10 +22,13 @@ at batch B, which is also the JAX package's sharded step:
 The gradient all-reduce is explicit rather than the
 ``DistributedDataParallel`` wrapper, which does not support the
 ``torch.autograd.grad`` the trainers and the penalty take gradients with.
-NCCL serves CUDA devices and gloo the CPU.  The JAX package's
-``shard_stacked_batches`` (the ``lax.scan`` feed, not ported) and
-``pad_batch_to_devices`` (no caller here: the validation sweep of each rank
-takes its rows as they come and sums them) have no counterpart.
+NCCL serves CUDA devices and gloo the CPU (gloo's all-reduce also takes
+CUDA tensors).
+Halo-tiled inference (``evaluation/tiled.py``) pads each chunk of tiles to
+a multiple of the world size (:func:`pad_batch_to_devices`), forwards each
+rank's rows and collects the results in the chunk's order
+(:func:`gather_rows`).  The JAX package's ``shard_stacked_batches`` (the
+``lax.scan`` feed) is not ported.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import os
 import warnings
 from typing import Any, Iterable, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
@@ -148,6 +152,37 @@ def shard_batch(batch: Any, mesh: Mesh) -> Any:
             f"a global batch of {n} does not split over {mesh.world} ranks; "
             "choose a batch size that the number of processes divides")
     return batch[mesh.rank::mesh.world]
+
+
+def pad_batch_to_devices(batch: Any, mesh: Mesh) -> Any:
+    """A global batch with its last row repeated until the world size
+    divides its length: a dict of arrays or tensors, or one of them.  The
+    JAX package's ``pad_batch_to_devices`` (numpy's ``edge`` mode)."""
+    if isinstance(batch, dict):
+        return {k: pad_batch_to_devices(v, mesh) for k, v in batch.items()}
+    n_pad = -len(batch) % mesh.world
+    if not n_pad:
+        return batch
+    if isinstance(batch, torch.Tensor):
+        return torch.cat([batch, batch[-1:].expand(n_pad, *batch.shape[1:])])
+    return np.concatenate([batch, np.repeat(batch[-1:], n_pad, 0)])
+
+
+def gather_rows(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The inverse of :func:`shard_batch`: every rank's rows (``rank::world``
+    of the global batch, the same number on each rank) back in the global
+    order, on every rank; one ``all_gather``.  Under NCCL ``tensor`` must
+    lie on ``mesh.device``; gloo gathers on the CPU (its ``all_gather``
+    takes no CUDA tensor), where the result then lies."""
+    if mesh.group is None or mesh.world == 1:
+        return tensor
+    if dist.get_backend(mesh.group) == "gloo":
+        tensor = tensor.cpu()
+    tensor = tensor.contiguous()
+    parts = [torch.empty_like(tensor) for _ in range(mesh.world)]
+    dist.all_gather(parts, tensor, group=mesh.group)
+    # parts[r][i] is global row i * world + r
+    return torch.stack(parts, dim=1).flatten(0, 1)
 
 
 def all_reduce_sum(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -5,7 +5,10 @@ Counterpart of ``sradsgan_tpu/serving.py``.  :class:`Predictor` has the
 JAX one's contract:
 numpy NHWC float [0, 1] in and out, inputs that fit a bucket reflect-padded
 up to it (so only a fixed set of shapes ever reaches the device) and cropped
-back, larger inputs sent through halo-tiled inference.  The model runs under
+back, larger inputs sent through halo-tiled inference, which shares the
+tiles of a scene over the ranks of a data mesh (``parallel/mesh.py``): under
+``torchrun`` every rank builds its ``Predictor`` on its own card and calls it
+with the same scene.  The model runs under
 ``torch.inference_mode()``, in float32 or, with ``dtype=torch.bfloat16``, in
 bf16 with the gate math and softmax statistics kept in float32 as in the
 JAX package.
@@ -31,6 +34,7 @@ from torch import nn
 from sradsgan_tpu_torch.evaluation.tiled import (forward_numpy,
                                                  tiled_super_resolve)
 from sradsgan_tpu_torch.nn.attention import SpatialGate
+from sradsgan_tpu_torch.parallel.mesh import Mesh
 
 DTYPES = (torch.float32, torch.bfloat16)
 # What a bf16 copy keeps in float32, as the JAX package keeps its params
@@ -69,14 +73,17 @@ class Predictor:
     ``model`` is moved to ``device`` (in place); a bf16 predictor runs a
     bf16 copy of it.  It serves the model as it was built: a generator
     made with ``create_generator(..., rab_tail="fused")`` runs its fused
-    RAB tails.
+    RAB tails.  ``mesh`` (default: the active mesh, if any) is the data
+    mesh the tiled fallback shares its tiles over; each rank gets the
+    whole scene.
     """
 
     def __init__(self, model: nn.Module, scale: int,
                  buckets: Sequence[int] = (54, 72, 108, 216),
                  tile: int = 54, halo: int = 8, *,
                  device: torch.device | str = "cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 mesh: Optional[Mesh] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -93,6 +100,7 @@ class Predictor:
         self.buckets = sorted(buckets)
         self.tile = tile
         self.halo = halo
+        self.mesh = mesh
 
     def __call__(self, lr01: np.ndarray) -> np.ndarray:
         """(B, H, W, C) or (H, W, C) float [0, 1] -> SR, any input size.
@@ -109,7 +117,8 @@ class Predictor:
             out = np.stack([
                 tiled_super_resolve(self.model, lr01[i], self.scale,
                                     self.tile, self.halo,
-                                    device=self.device, dtype=self.dtype)
+                                    device=self.device, dtype=self.dtype,
+                                    mesh=self.mesh)
                 for i in range(b)])
         else:
             padded = np.pad(lr01, ((0, 0), (0, bucket - h), (0, bucket - w),

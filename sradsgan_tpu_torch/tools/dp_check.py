@@ -29,7 +29,16 @@ of hanging it) and returns each rank's results.  The spec is JSON:
   timed likewise where the scenario asks;
 - ``"epoch"``: ``Trainer.train()`` for ``config``'s epochs; it returns the
   steps taken, the last sweep's metrics and the final state dicts;
-- ``"validate"``: ``Trainer.validate(max_batches)``.
+- ``"validate"``: ``Trainer.validate(max_batches)``;
+- ``"tiled"``: ``evaluation.tiled.tiled_super_resolve`` over the mesh:
+  the generator ``model`` at ``scale`` with ``model_kwargs``, its weights
+  from ``weights`` (a state dict), in eval mode, on the scene that
+  :func:`tiled_scene` makes from ``seed``, ``height`` and ``width``, cut
+  at ``tile``, ``halo`` and ``batch_tiles``; it returns the scene every
+  rank stitched and the kernel launches of that call; with ``turns`` (a
+  list of ``"one"`` and ``"mesh"``), the call is then timed in those
+  turns, ``"one"`` rank 0 alone without the group (the others wait),
+  ``"mesh"`` every rank over the group (:func:`_tiled_turns`).
 
 Every rank runs float32 without TF32, as the one process it is held
 against.
@@ -102,6 +111,12 @@ def diffusion_batches(seed: int, steps: int, batch: int,
     rng = np.random.default_rng(seed)
     return [{k: rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
              for k in ("HR", "SR")} for _ in range(steps)]
+
+
+def tiled_scene(seed: int, height: int, width: int) -> np.ndarray:
+    """An (height, width, 3) float32 LR scene in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    return rng.random((height, width, 3), dtype=np.float32)
 
 
 def _cpu_state(module: Optional[torch.nn.Module]) -> Dict[str, torch.Tensor]:
@@ -232,8 +247,57 @@ def _validate(sc: Dict[str, Any], device: str) -> Dict[str, Any]:
     return {"val": trainer.validate(sc.get("max_batches"))}
 
 
+def _tiled_turns(run_one, run_mesh, mesh, turns: List[str]
+                 ) -> Dict[str, List[float]]:
+    """ms a call (host clock; the scene comes back to the host, which
+    waits) of each turn, each begun behind a barrier of every rank: a
+    ``"one"`` turn times rank 0 alone (the other ranks wait at the next
+    barrier), a ``"mesh"`` turn every rank."""
+    times: Dict[str, List[float]] = {"one": [], "mesh": []}
+    for turn in turns:
+        mesh.barrier()
+        if turn == "mesh" or mesh.is_main:
+            run = run_mesh if turn == "mesh" else run_one
+            t0 = time.perf_counter()
+            run()
+            times[turn].append((time.perf_counter() - t0) * 1e3)
+        mesh.barrier()
+    return times
+
+
+def _tiled(sc: Dict[str, Any], device: str) -> Dict[str, Any]:
+    from sradsgan_tpu_torch.evaluation.tiled import tiled_super_resolve
+    from sradsgan_tpu_torch.models import create_generator
+    from sradsgan_tpu_torch.parallel.mesh import active_mesh
+
+    mesh = active_mesh()
+    model = create_generator(sc["model"], sc["scale"],
+                             **sc.get("model_kwargs", {}))
+    if sc.get("weights"):
+        model.load_state_dict(torch.load(sc["weights"], weights_only=True))
+    model = model.to(mesh.device).eval()
+    image = tiled_scene(sc["seed"], sc["height"], sc["width"])
+
+    def call(on_mesh):
+        return tiled_super_resolve(
+            model, image, sc["scale"], sc["tile"], sc["halo"],
+            sc["batch_tiles"], device=mesh.device,
+            mesh=mesh if on_mesh else dataclasses.replace(
+                mesh, rank=0, world=1, group=None))
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    scene = call(True)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    turn_ms = _tiled_turns(lambda: call(False), lambda: call(True), mesh,
+                           sc.get("turns", []))
+    return {"scene": torch.from_numpy(scene), "launches": launches,
+            "turn_ms": turn_ms}
+
+
 SCENARIOS = {"gan": _gan, "diffusion": _diffusion, "epoch": _epoch,
-             "validate": _validate}
+             "validate": _validate, "tiled": _tiled}
 
 
 def run_rank(rank: int, world: int, init: str, spec: Dict[str, Any],

@@ -48,9 +48,15 @@ loader per epoch seeded ``cfg.seed + epoch``, a log line every 50 steps, the
 twin, the epoch-end validation sweep (:meth:`Trainer.validate`), the
 reference's best-metric chain, per-epoch checkpoints and ``ckpt_best.pt``,
 step decay, the plateau backtrack, the lr-floor stop, and chain
-initialization from ``cfg.init_from`` (:func:`partial_restore`).
-TensorBoard summaries, the loss-curve plot and ``steps_per_call`` are not
-ported.
+initialization from ``cfg.init_from`` (:func:`partial_restore`).  Its
+TensorBoard sinks (``logs/`` under ``cfg.model_dir``, where tensorboardX
+imports) are the JAX trainer's: the step's losses as scalars every 50
+steps, the first image's SR, HR and bicubic twin at ``sample_interval``,
+and at each epoch's end histograms ``g_params`` and ``d_params`` of the
+first 2048 values of every parameter tensor (in the port's OIHW layout and
+registration order, so that their values differ from JAX's HWIO leaves);
+after the last epoch ``train_curves.png`` (where matplotlib imports).
+``steps_per_call`` is not ported.
 
 Data parallelism (``cfg.num_devices``; ``parallel/mesh.py``): under
 ``torchrun`` each rank holds the whole models and steps on its rows of the
@@ -97,6 +103,7 @@ from sradsgan_tpu_torch.parallel.mesh import (all_reduce_grads_,
                                               replicate, shard_batch)
 from sradsgan_tpu_torch.train.state import get_lr, make_optimizer, set_lr
 from sradsgan_tpu_torch.utils.logging import Logger
+from sradsgan_tpu_torch.utils.plotting import plot_curves
 
 Batch = Mapping[str, Any]
 # The sweep's per-image metrics (:meth:`Trainer._eval_step`); with
@@ -189,7 +196,8 @@ class Trainer:
                                         o.lr, o.b1, o.b2)
         self.alpha_generator = torch.Generator().manual_seed(cfg.seed + 1)
         self.step = 0
-        self.logger = Logger(cfg.model, os.path.join(cfg.model_dir, "logs"))
+        self.logger = Logger(cfg.model, os.path.join(cfg.model_dir, "logs"),
+                             use_tensorboard=self.mesh.is_main)
         self.history: Dict[str, list] = {}
         # seconds the last epoch of train() took, and of those the seconds
         # its loop waited on the data feed
@@ -354,12 +362,14 @@ class Trainer:
         return sr.float()
 
     @torch.no_grad()
-    def _eval_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
+    def _eval_step(self, batch: Batch,
+                   keep_sr: bool = False) -> Dict[str, torch.Tensor]:
         """Per-image metrics of G(lr) and of the bicubic twin against hr,
         each (B,) on the device; with ``cfg.val_lpips`` also ``lpips`` and
         ``bc_lpips`` (AlexNet LPIPS in float32, on the raw SR), so that the
         sweep carries all five of the reference's metrics
-        (``sradsgan.py:1484-1496``)."""
+        (``sradsgan.py:1484-1496``); with ``keep_sr`` also ``sr``, the SR
+        batch."""
         hr_img, bc_img = (self._to_device(batch[k]) for k in ("hr", "bc"))
         sr = self._eval_sr(batch["lr"])
         out = {"psnr": batched_psnr(sr, hr_img),
@@ -370,6 +380,8 @@ class Trainer:
         if self.cfg.val_lpips:
             out["lpips"] = batched_lpips(sr, hr_img)
             out["bc_lpips"] = batched_lpips(bc_img, hr_img)
+        if keep_sr:
+            out["sr"] = sr
         return out
 
     def validate(self, max_batches: Optional[int] = None) -> Dict[str, float]:
@@ -419,11 +431,38 @@ class Trainer:
             state["discriminator"] = self.discriminator.state_dict()
         self._save(state, path)
 
+    def _sample_summary(self, batch: Batch, sr: torch.Tensor,
+                        step: int) -> None:
+        """The first image's SR, HR and bicubic twin as TensorBoard
+        images, as the JAX trainer writes them."""
+        def hwc(t):
+            return t[0].float().permute(1, 2, 0).cpu().numpy()
+        self.logger.image_summary(
+            "sample/sr_hr_bicubic",
+            [hwc(sr)] + [hwc(self._to_device(batch[k])) for k in ("hr", "bc")],
+            step)
+
+    def _param_histograms(self, step: int) -> None:
+        """The first 2048 values of each parameter tensor of G and of D,
+        concatenated, as TensorBoard histograms."""
+        for tag, model in (("g_params", self.generator),
+                           ("d_params", self.discriminator)):
+            if model is not None:
+                self.logger.histo_summary(tag, np.concatenate(
+                    [p.detach().float().cpu().numpy().ravel()[:2048]
+                     for p in model.parameters()]), step)
+
     def train(self, num_steps: Optional[int] = None) -> Dict[str, float]:
         """Train for ``cfg.num_epochs`` epochs and return the last
         validation sweep's metrics, or, with ``num_steps``, stop after that
         many steps (the epoch cap lifted) and return the last step's
         losses."""
+        try:
+            return self._train(num_steps)
+        finally:
+            self.logger.close()
+
+    def _train(self, num_steps: Optional[int]) -> Dict[str, float]:
         cfg, mesh = self.cfg, self.mesh
         os.makedirs(cfg.model_dir, exist_ok=True)
         dataset = build_train_dataset(cfg.data, cfg.scale)
@@ -477,10 +516,14 @@ class Trainer:
                         self._log("train", {"epoch": epoch,
                                             "step": step_count,
                                             "MP/s": rate, **m})
+                        if mesh.is_main:
+                            for k, v in m.items():
+                                self.logger.scalar_summary(k, v, step_count)
                     if (cfg.sample_interval
                             and step_count % cfg.sample_interval == 0):
                         # the current global batch against its bicubic twin
-                        q = self._eval_step(batch)
+                        q = self._eval_step(batch, keep_sr=True)
+                        sr = q.pop("sr")
                         sums = all_reduce_sums([v.sum() for v in q.values()],
                                                mesh)
                         n = cfg.data.batch_size
@@ -488,6 +531,8 @@ class Trainer:
                                             "step": step_count,
                                             **{k: float(v) / n for k, v
                                                in zip(q, sums.tolist())}})
+                        if mesh.is_main:  # its first rows are the batch's
+                            self._sample_summary(batch, sr, step_count)
                     if num_steps is not None and step_count >= num_steps:
                         return {k: float(v) for k, v in metrics.items()}
             finally:
@@ -495,8 +540,11 @@ class Trainer:
                 self.feed_stats = {"epoch_s": time.time() - epoch_t0,
                                    "feed_wait_s": waited}
 
-            # epoch end: the validation sweep feeds the plateau policy, so
-            # it covers the whole test set unless cfg.val_max_batches caps it
+            # epoch end: parameter histograms; the validation sweep feeds
+            # the plateau policy, so it covers the whole test set unless
+            # cfg.val_max_batches caps it
+            if mesh.is_main:
+                self._param_histograms(step_count)
             val = self.validate(max_batches=cfg.val_max_batches)
             last_metrics = val
             self._log("val", {"epoch": epoch, **val})
@@ -562,6 +610,9 @@ class Trainer:
                         hist = self.history[k]
                         del hist[len(hist) - min(cfg.optim.plateau_patience,
                                                  len(hist)):]
+        if mesh.is_main:
+            plot_curves(self.history,
+                        os.path.join(cfg.model_dir, "train_curves.png"))
         return last_metrics
 
     # ------------------------------------------------------------------

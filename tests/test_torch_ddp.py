@@ -10,7 +10,9 @@ spawn for the module, joined against a deadline) run every scenario once:
 - ``DiffusionTrainer``'s step at global batch 4, ``t`` and the noise drawn
   for the global batch;
 - an epoch of ``Trainer.train()`` over 11 images at batch 4;
-- validation sweeps whose images split unevenly over the ranks.
+- validation sweeps whose images split unevenly over the ranks;
+- halo-tiled inference of a 36 x 20 scene, 15 tiles in chunks of 4 (the
+  tail of 3 padded to 4), each rank stitching the whole scene.
 
 Each is held against one process here at the global batch (the same
 weights, batches and draws): the losses within 1e-6 relative, every
@@ -70,6 +72,11 @@ GANS = {"sradsgan": (dict(base_filters=16, n_groups=1, n_blocks=1), CBAM_D),
         "srgan": (dict(base_filters=8, num_residuals=1), PLAIN_D)}
 UNET = dict(inner_channel=32, channel_mults=(1, 2), res_blocks=1)
 DEADLINE_S = 150.0
+# 15 tiles of 8 + 2 * 3 pixels, in chunks of 4: 2 + 2 a rank, 2 + 2, 2 + 2
+# and, padded from 3, 2 + 2
+TILED = {"model": "sradsgan", "scale": 2,
+         "model_kwargs": GANS["sradsgan"][0], "seed": 13, "height": 36,
+         "width": 20, "tile": 8, "halo": 3, "batch_tiles": 4}
 
 
 def _np(tree):
@@ -197,6 +204,11 @@ def run():
             spec.append({"name": f"val_{label}", "kind": "validate",
                          "config": f"{work}/val.json", "max_batches": cap,
                          "weights": weights["sradsgan"]})
+        torch.save(torch.load(weights["sradsgan"],
+                              weights_only=True)["generator"],
+                   f"{work}/tiled_g.pt")
+        spec.append(dict(TILED, name="tiled", kind="tiled",
+                         weights=f"{work}/tiled_g.pt", turns=["one", "mesh"]))
         ranks = dp_check.run_ranks({"device": "cpu", "backend": "gloo",
                                     "tiny": tiny, "scenarios": spec},
                                    WORLD, f"{work}/ranks", DEADLINE_S)
@@ -395,6 +407,33 @@ def test_a_sweep_over_uneven_ranks(run, label, cap):
         assert set(got) == set(want)
         for key, value in want.items():
             assert abs(got[key] - value) <= 1e-6 * max(1.0, abs(value)), key
+
+
+def test_two_ranks_tile_a_scene_as_one_process(run):
+    """Every rank returns the whole scene, bit-equal to the other's and to
+    one process's within 1e-6 of max|ref| (the ranks forward chunks of 2
+    tiles where one process forwards 4), with the two kinds of turn timed
+    once each on rank 0."""
+    from sradsgan_tpu_torch.evaluation.tiled import tiled_super_resolve
+
+    model = models.create_generator("sradsgan", TILED["scale"],
+                                    **TILED["model_kwargs"])
+    model.load_state_dict(torch.load(f"{run['work']}/tiled_g.pt",
+                                     weights_only=True))
+    image = dp_check.tiled_scene(TILED["seed"], TILED["height"],
+                                 TILED["width"])
+    want = tiled_super_resolve(model.eval(), image, TILED["scale"],
+                               TILED["tile"], TILED["halo"],
+                               TILED["batch_tiles"], device="cpu")
+    scenes = [r["tiled"]["scene"].numpy() for r in run["ranks"]]
+    assert scenes[0].shape == want.shape == (72, 40, 3)
+    np.testing.assert_array_equal(scenes[0], scenes[1])
+    assert np.abs(scenes[0] - want).max() <= 1e-6 * np.abs(want).max()
+    assert run["ranks"][0]["tiled"]["launches"] == dict.fromkeys(
+        dp_check.kernel_wrappers(), 0)  # the CPU runs the plain versions
+    turns = run["ranks"][0]["tiled"]["turn_ms"]
+    assert len(turns["one"]) == len(turns["mesh"]) == 1
+    assert run["ranks"][1]["tiled"]["turn_ms"]["one"] == []
 
 
 @pytest.mark.parametrize("drop_last", [False, True])

@@ -1,8 +1,10 @@
 """The port's epoch loop against the JAX package's, with ``validate``
 scripted on both sides: the plateau backtrack (reload, halvings, rewind,
 history pops), the best-checkpoint saves, the lr-floor stop and the step
-decay."""
+decay, and what the run leaves in its directory (the TensorBoard events and
+``train_curves.png``)."""
 
+import importlib.util
 import itertools
 import os
 
@@ -14,6 +16,7 @@ from sradsgan_tpu.train import trainer as jax_trainer_module  # noqa: E402
 from sradsgan_tpu.train.state import get_lr as jax_get_lr  # noqa: E402
 from sradsgan_tpu_torch.train.state import get_lr  # noqa: E402
 from sradsgan_tpu_torch.train.trainer import Trainer  # noqa: E402
+from test_torch_logging import read_events  # noqa: E402
 from test_torch_train_loop import _both_configs  # noqa: E402
 
 JaxTrainer = jax_trainer_module.Trainer
@@ -34,9 +37,12 @@ def test_epoch_loop_follows_the_jax_trainer(monkeypatch, tmp_path, rewind):
     validated epochs (so the same best epoch and the same rewinds), the
     same best-checkpoint saves, G and D learning rates (the D's halves at
     the third plateau only) and history lengths, down to the lr-floor stop
-    (raised to 5e-5 to keep the run short).  The lr starts at 3e-4, so that no
-    halving lands on the 1e-4 threshold of the D's rule (see
-    test_discriminator_lr_rule_at_the_threshold)."""
+    (raised to 5e-5 to keep the run short); both runs write
+    ``train_curves.png`` and TensorBoard events of the same scalar and
+    histogram tags, at the same steps, the histograms of as many values
+    (their values differ: see ``train/trainer.py``).  The lr starts at
+    3e-4, so that no halving lands on the 1e-4 threshold of the D's rule
+    (see test_discriminator_lr_rule_at_the_threshold)."""
     cfg, port_cfg = _both_configs(tmp_path)
     for c in (cfg, port_cfg):
         c.optim.plateau_patience = 2
@@ -70,6 +76,7 @@ def test_epoch_loop_follows_the_jax_trainer(monkeypatch, tmp_path, rewind):
 
     monkeypatch.setattr(jax_trainer_module, "save_pytree", spy_save)
     jt.train()
+    jt.logger.writer.close()
 
     pt = Trainer(port_cfg, device="cpu")
     monkeypatch.setattr(pt, "validate", _scripted(
@@ -96,6 +103,23 @@ def test_epoch_loop_follows_the_jax_trainer(monkeypatch, tmp_path, rewind):
     logs = os.path.join(port_cfg.model_dir, "logs")
     with open(os.path.join(logs, "val_log.txt")) as f:
         assert len(f.readlines()) == len(seen["port"])
+    for c in (cfg, port_cfg):
+        assert os.path.getsize(os.path.join(c.model_dir,
+                                            "train_curves.png")) > 0
+    if None in (importlib.util.find_spec(m)
+                for m in ("tensorboardX", "tensorboard")):
+        return  # neither side writes events, or they cannot be read
+    got, want = (read_events(os.path.join(c.model_dir, "logs"))
+                 for c in (port_cfg, cfg))
+    assert want["histograms"].keys() == {"g_params", "d_params"}
+    assert len(want["histograms"]["g_params"]) == len(seen["jax"])
+    for kind in ("scalars", "histograms"):
+        assert got[kind].keys() == want[kind].keys(), kind
+        for tag, events in want[kind].items():
+            assert [e[0] for e in got[kind][tag]] == [e[0] for e in events]
+    for tag, events in want["histograms"].items():
+        assert [e[3] for e in got["histograms"][tag]] == [
+            e[3] for e in events], tag
 
 
 def test_discriminator_lr_rule_at_the_threshold(monkeypatch, tmp_path):

@@ -78,7 +78,8 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
     sragan``, on the synthetic set at tiny sizes, ``export`` of a tiny
     HAT read back by ``serving.load_exported``, and ``diffusion-train``
     with the diffusion modules, the data mesh and the ranks' worker of the
-    data-parallel checks."""
+    data-parallel checks, the reference and torchvision weight readers and
+    the report and wandb utilities."""
     tiny = json.dumps({"base_filters": 16, "n_groups": 1, "n_blocks": 1})
     flags = ["--device", "cpu", "--data", "synthetic", "--scale", "2",
              "--crop-size", "32", "--lpips", "--save-dir", str(tmp_path),
@@ -135,6 +136,10 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
             "import sradsgan_tpu_torch.diffusion.trainer\n"
             "import sradsgan_tpu_torch.parallel.mesh\n"
             "import sradsgan_tpu_torch.tools.dp_check\n"
+            "import sradsgan_tpu_torch.tools.from_reference\n"
+            "import sradsgan_tpu_torch.tools.convert_torch\n"
+            "import sradsgan_tpu_torch.utils.report\n"
+            "import sradsgan_tpu_torch.utils.wandb_logger\n"
             f"for argv in {commands!r}:\n"
             "    assert sradsgan_tpu_torch.cli.main(argv) == 0\n"
             "import numpy as np\n"

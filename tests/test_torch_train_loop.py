@@ -3,6 +3,8 @@ run on the same in-memory triplets, the validation sweep, chain
 initialization, and the ``train`` command.  The epoch loop's control flow
 with a scripted validation is in ``test_torch_epoch_loop.py``."""
 
+import importlib.util
+import io
 import json
 import os
 
@@ -29,6 +31,7 @@ from sradsgan_tpu_torch.tools.from_jax import (  # noqa: E402
     discriminator_state_dict, sradsgan_state_dict, vgg19_state_dict)
 from sradsgan_tpu_torch.train import trainer as trainer_module  # noqa: E402
 from sradsgan_tpu_torch.train.trainer import Trainer, partial_restore  # noqa
+from test_torch_logging import read_events  # noqa: E402
 from test_torch_sradsgan import random_params  # noqa: E402
 from test_torch_trainer import D_BLOCKS, _config, _fields, _gains  # noqa
 
@@ -132,6 +135,28 @@ def test_two_epochs_match_the_jax_trainer(monkeypatch, tmp_path):
     assert pt.feed_stats["epoch_s"] >= pt.feed_stats["feed_wait_s"] >= 0
     with open(os.path.join(port_cfg.model_dir, "logs", "loss_log.txt")) as f:
         assert "bc_psnr" in f.read()  # the sample_interval line, at step 3
+    if None in (importlib.util.find_spec(m)
+                for m in ("tensorboardX", "tensorboard")):
+        return  # neither side writes events, or they cannot be read
+    # the sample images of step 3: the same HR and bicubic pictures, SRs
+    # within one uint8 level
+    jt.logger.writer.close()
+    got, want = (read_events(os.path.join(c.model_dir, "logs"))["images"]
+                 for c in (port_cfg, cfg))
+    assert set(got) == set(want) == {f"sample/sr_hr_bicubic/{i}"
+                                     for i in range(3)}
+    for tag, events in want.items():
+        (step, width, height, png), = events
+        (p_step, p_width, p_height, p_png), = got[tag]
+        assert (p_step, p_width, p_height) == (step, width, height) == (
+            3, 16, 16)
+        if not tag.endswith("/0"):
+            assert p_png == png, tag
+    from PIL import Image
+    sr = [np.asarray(Image.open(io.BytesIO(events[0][3])), np.int16)
+          for events in (got["sample/sr_hr_bicubic/0"],
+                         want["sample/sr_hr_bicubic/0"])]
+    assert np.abs(sr[0] - sr[1]).max() <= 1
 
 
 def test_validate_counts_each_image_once(tmp_path):
