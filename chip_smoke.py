@@ -169,11 +169,13 @@ from sradsgan_tpu_torch.data.loader import DataLoader
 from sradsgan_tpu_torch.evaluation.tiled import forward_numpy
 from sradsgan_tpu_torch.evaluation.validate import (
     Evaluator, _score_pair, format_by_class_table, mfe_new_validate_by_class)
+from sradsgan_tpu_torch.losses import gan as gan_losses
 from sradsgan_tpu_torch.losses.lpips import lpips_fn, lpips_is_calibrated
 from sradsgan_tpu_torch.models import (config_for_model, create_discriminator,
                                        create_generator, get_spec)
-from sradsgan_tpu_torch.nn.attention import (ChannelGate, LocalAttention,
-                                             SpatialGate,
+from sradsgan_tpu_torch.models.sradsgan import RAB
+from sradsgan_tpu_torch.nn.attention import (KERNEL_POOL, ChannelGate,
+                                             LocalAttention, SpatialGate,
                                              SpatialSelfAttention)
 from sradsgan_tpu_torch.ops import (_build, pooling, rab_tail, sgam_flash,
                                     spatial_gate)
@@ -775,31 +777,44 @@ def latency_ms(pred: Predictor, x: np.ndarray, iters: int = 10) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def _count(model, kind) -> int:
-    return sum(isinstance(m, kind) for m in model.modules())
-
-
 def _pools(model) -> int:
-    """Channel gates that take the fused avg+max pool (DSSR's "Avg" gates
-    take a plain mean)."""
-    return sum(isinstance(m, ChannelGate) and m.pool_mode == "Avg|Max"
+    """Channel gates that take the fused avg+max pool ("Avg|Max"; the
+    single-stat gates, DSSR's and the "Avg"/"Max" ablations', take a plain
+    mean or max)."""
+    return sum(isinstance(m, ChannelGate) and m.pool_mode == KERNEL_POOL
+               for m in model.modules())
+
+
+def _gates(model) -> int:
+    """Spatial gates that run the gate kernel ("Avg|Max"; a single-stat
+    gate runs the plain stencil)."""
+    return sum(isinstance(m, SpatialGate) and m.pool_mode == KERNEL_POOL
+               for m in model.modules())
+
+
+def _sgams(model) -> int:
+    """SGAMs that run the attention kernel (the patch D's global attention
+    is built plain)."""
+    return sum(isinstance(m, SpatialSelfAttention) and not m.plain
                for m in model.modules())
 
 
 def forward_launches(generator, forwards: int = 1) -> dict:
     """Kernel launches of ``forwards`` no-grad generator forwards, from the
-    module structure: per local attention a pool (K1) and a gate (K2), or,
-    fused, one RAB tail (K6, which pools inside its own launch); the
-    attention kernel (K3) once per SGAM/PAM.  The local attentions are one
-    per RAB and one per group in SRADSGAN (48), one per BasicBlock and one
-    per group in SRAGAN (72)."""
-    fused = sum(isinstance(m, LocalAttention) and m.rab_tail == "fused"
+    module structure: per "Avg|Max" channel gate a pool (K1) and per
+    "Avg|Max" spatial gate a gate (K2), but a fused tail (K6, which pools
+    inside its own launch) in place of both for each tail that
+    ``rab_tail="fused"`` fuses (``LocalAttention.fused``: 'CA-SA',
+    "Avg|Max", with the conv); the attention kernel (K3) once per SGAM at
+    a kernel width.  At the defaults the local attentions are one per RAB
+    and one per group in SRADSGAN (48), one per BasicBlock and one per
+    group in SRAGAN (72); the grammar's modes change which gates each
+    holds (GRAMMAR_CASES)."""
+    fused = sum(isinstance(m, LocalAttention) and m.fused
                 for m in generator.modules())
     return {"avg_max_pool": forwards * (_pools(generator) - fused),
-            "spatial_gate": forwards * (_count(generator, SpatialGate)
-                                        - fused),
-            "position_attention": forwards * _count(
-                generator, SpatialSelfAttention),
+            "spatial_gate": forwards * (_gates(generator) - fused),
+            "position_attention": forwards * _sgams(generator),
             "spatial_gate_bwd": 0, "position_attention_bwd": 0,
             "rab_tail": forwards * fused}
 
@@ -928,14 +943,13 @@ def step_launches(trainer) -> dict:
     gate's output through the BatchNorms after it, D(interpolates))."""
     g = trainer.generator
     counts = forward_launches(g)
-    d_gates = (_count(trainer.discriminator, SpatialGate)
+    d_gates = (_gates(trainer.discriminator)
                if trainer.discriminator is not None else 0)
     wgan = trainer.cfg.gan.gan_type == "wgan-gp"
     d_forwards = 4 if wgan else 3
     counts["avg_max_pool"] += d_forwards * d_gates
     counts["spatial_gate"] += d_forwards * d_gates
-    counts["spatial_gate_bwd"] = (_count(g, SpatialGate)
-                                  + (d_forwards + wgan) * d_gates)
+    counts["spatial_gate_bwd"] = (_gates(g) + (d_forwards + wgan) * d_gates)
     counts["position_attention_bwd"] = counts["position_attention"]
     return counts
 
@@ -968,10 +982,10 @@ def _max_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 def zero_by_math(model: torch.nn.Module) -> set:
     """Parameters whose gradient is exactly zero in exact arithmetic: the
     bias of a conv that feeds a BatchNorm (the normalization removes any
-    per-channel shift) and the SGAM key conv's bias (it shifts each query's
+    per-channel shift) and an SGAM key conv's bias (it shifts each query's
     energies by a constant, which the softmax removes)."""
     names = {n for n, _ in model.named_parameters()
-             if n.endswith("sa.key_conv.bias")}
+             if n.endswith("key_conv.bias")}
     layers = list(model.named_modules())
     for (name, m), (_, nxt) in zip(layers, layers[1:]):
         if (isinstance(m, torch.nn.Conv2d) and m.bias is not None
@@ -1009,10 +1023,78 @@ def _grad_errors(got, ref, skip) -> list:
                   reverse=True)
 
 
-def _cpu_step(batch, float64: bool, rab_tail: str, check: dict):
+# A LeakyReLU input within KINK_EPS of its layer's max |ref| of zero is a
+# kink that float32 rounding may put on either side (KINK_EPS is 100 x the
+# 1e-8 relative size of those the flagship's ablations put there on an
+# H100 80GB HBM3, 700 W).  Both sides of an aligned kink lie within that
+# band, and a layer with more than KINK_CAP of them fails the check (the
+# runs read 5 and 7 in all).
+KINK_EPS = 1e-6
+KINK_CAP = 32
+
+
+def _rab_conv1s(generator) -> dict:
+    """Each RAB's conv1, whose output is the RAB's LeakyReLU's input."""
+    return {n: m.conv1 for n, m in generator.named_modules()
+            if isinstance(m, RAB)}
+
+
+@contextlib.contextmanager
+def recorded_kinks(generator, store: dict):
+    """Record each RAB's LeakyReLU input (its conv1's output) of the
+    forwards inside the block, on the CPU."""
+    hooks = [conv.register_forward_hook(
+        lambda mod, inp, out, n=n: store.__setitem__(n, out.detach().cpu()))
+        for n, conv in _rab_conv1s(generator).items()]
+    try:
+        yield store
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@contextlib.contextmanager
+def aligned_kinks(generator, card: dict, flips: dict):
+    """Inside the block, each RAB's LeakyReLU input takes the card's value
+    (``card``, from :func:`recorded_kinks`) wherever the two lie on either
+    side of zero and both within KINK_EPS of the layer's max: the reference
+    then takes the card's branch of the kink there, which changes its
+    values by at most 2 KINK_EPS of the max and its gradients' paths not
+    at all (the change is a constant).  ``flips`` sums, per layer, the
+    count of such elements and keeps the largest |card - reference|
+    adopted."""
+    def align(mod, inp, out, n):
+        theirs = card[n].to(out)
+        band = KINK_EPS * out.abs().max()
+        flip = (((theirs > 0) != (out > 0))
+                & (out.abs() <= band) & (theirs.abs() <= band))
+        adopted = float(((theirs - out).abs() * flip).max().detach())
+        count, most = flips.get(n, (0, 0.0))
+        flips[n] = (count + int(flip.sum()), max(most, adopted))
+        return out + ((theirs - out) * flip).detach()
+
+    hooks = [conv.register_forward_hook(
+        lambda mod, inp, out, n=n: align(mod, inp, out, n))
+        for n, conv in _rab_conv1s(generator).items()]
+    try:
+        yield flips
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _cpu_step(batch, float64: bool, rab_tail: str, check: dict,
+              card_kinks: dict | None = None):
+    """The CPU step; with ``card_kinks`` (the card's RAB LeakyReLU inputs
+    of its step) it takes the card's branch at each kink they straddle
+    (:func:`aligned_kinks`), and ``trainer.kink_flips`` counts them."""
     trainer = _fan_in_trainer("cpu", float64, rab_tail, check)
+    trainer.kink_flips = {}
+    align = (aligned_kinks(trainer.generator, card_kinks, trainer.kink_flips)
+             if card_kinks is not None else contextlib.nullcontext())
     t0 = time.perf_counter()
-    metrics = trainer.train_step(batch, torch.Generator().manual_seed(7))
+    with align:
+        metrics = trainer.train_step(batch, torch.Generator().manual_seed(7))
     return trainer, metrics, time.perf_counter() - t0
 
 
@@ -1230,8 +1312,11 @@ def phase_train_correctness(rab_tail: str, unfused_card=None,
             mine["step_sr"] = sr
             return d_step(hr, sr, *args)
         card._d_step = d_step_keeping_sr
+    card_kinks = {} if check.get("align_kinks") else None
     reset_launches()
-    got = card.train_step(batch, torch.Generator().manual_seed(7))
+    with (recorded_kinks(card.generator, card_kinks) if card_kinks
+          is not None else contextlib.nullcontext()):
+        got = card.train_step(batch, torch.Generator().manual_seed(7))
     torch.cuda.synchronize()
     launches = read_launches()
     want_launches = step_launches(card)
@@ -1241,7 +1326,18 @@ def phase_train_correctness(rab_tail: str, unfused_card=None,
         fail(f"train step launch counts {launches} differ from the "
              f"module structure's {want_launches}")
 
-    ref, want, ref_s = _cpu_step(batch, True, rab_tail, check)
+    ref, want, ref_s = _cpu_step(batch, True, rab_tail, check, card_kinks)
+    if card_kinks is not None:
+        flipped = {n: k for n, (k, _) in ref.kink_flips.items() if k}
+        adopted = max((a for _, a in ref.kink_flips.values()), default=0.0)
+        print(f"{model_name} train step ({rab_tail}): the float64 reference "
+              f"takes the card's side of {sum(flipped.values())} LeakyReLU "
+              f"kink(s) within {KINK_EPS:.0e} of their layer's max, the "
+              f"largest |card - reference| adopted {adopted!r}: {flipped}")
+        over = {n: k for n, k in flipped.items() if k > KINK_CAP}
+        if over:
+            fail(f"more than {KINK_CAP} kinks a layer differ in sign between "
+                 f"the card and the float64 reference: {over}")
     control, control_metrics, control_s = _cpu_step(batch, False, rab_tail,
                                                     check)
     for key in ("loss_G", "loss_D", "pixel", "content", "adv_g"):
@@ -1770,99 +1866,124 @@ def zoo_init(model: torch.nn.Module, seed: int) -> None:
                 p.fill_(0.5)
 
 
-def _zoo_forward(name: str, batch: np.ndarray, smi: str, paths: dict) -> dict:
-    """One generator of the zoo at x4: a batch of four 54^2 requests on the
-    card in float32 (its exact launches), the first image against the CPU
-    plain path, the bf16 output against the float32 one as a PSNR, and the
-    request's latency in both types; SRAGAN also fused."""
-    model = create_generator(name, 4, seed=0)
+def _zoo_forward(name: str, batch: np.ndarray, smi: str, paths: dict, *,
+                 model_kwargs: dict | None = None, fused: bool = False,
+                 label: str | None = None, path_key: str | None = None,
+                 expect: dict | None = None) -> dict:
+    """One generator at x4 (``model_kwargs`` its arguments): a batch of four
+    54^2 requests on the card in float32 (its exact launches, and where
+    given ``expect``'s per tail), the first image against the CPU plain
+    path, the bf16 output against the float32 one as a PSNR, and the
+    request's latency in both types; with ``fused`` also the fused tails
+    from the same weights against the unfused output.  The launches go into
+    ``paths`` as ``path_key`` and ``path_key``_fused."""
+    kwargs = model_kwargs or {}
+    label = label or f"zoo {name}"
+    model = create_generator(name, 4, seed=0, **kwargs)
     zoo_init(model, seed=5)
     model.eval()
-    state = copy.deepcopy(model.state_dict()) if name == "sragan" else None
+    state = copy.deepcopy(model.state_dict()) if fused else None
     t0 = time.perf_counter()
     ref = forward_numpy(model, batch[:1], "cpu")
     cpu_s = time.perf_counter() - t0
-    pred = Predictor(model, 4)  # the model moves to the card
-    reset_launches()
-    got = pred(batch)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    if launches != forward_launches(model):
-        fail(f"{name} forward launches {launches} differ from the module "
-             f"structure's {forward_launches(model)}")
+
+    def serve(net, rab_tail):
+        pred = Predictor(net, 4)  # the model moves to the card
+        reset_launches()
+        out = pred(batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = forward_launches(net)
+        if launches != want or (expect and expect[rab_tail] != want):
+            fail(f"{label} {rab_tail} forward launches {launches}, the "
+                 f"module structure's {want}, the table's "
+                 f"{expect and expect[rab_tail]}")
+        if path_key:
+            paths[path_key + ("" if rab_tail == "unfused" else "_fused")] = (
+                launches)
+        return pred, out, launches
+
+    pred, got, launches = serve(model, "unfused")
     err = float(np.abs(got[:1] - ref).max())
     bound = SLICE_TOL * float(np.abs(ref).max())
     if got.shape != (4, 216, 216, 3) or not np.isfinite(got).all():
-        fail(f"{name} output {got.shape}, finite={np.isfinite(got).all()}")
+        fail(f"{label} output {got.shape}, finite={np.isfinite(got).all()}")
     pred_bf16 = Predictor(model, 4, dtype=torch.bfloat16)
     out_bf16 = pred_bf16(batch)
     if not np.isfinite(out_bf16).all():
-        fail(f"{name} bf16 output is not finite")
+        fail(f"{label} bf16 output is not finite")
     row = {"max_abs_err": err, "bound": bound, "cpu_s": cpu_s,
            "psnr_bf16_vs_f32_db": psnr(out_bf16, got),
            "f32_ms": latency_ms(pred, batch, iters=5),
            "bf16_ms": latency_ms(pred_bf16, batch, iters=5),
            "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
-    print(f"zoo {name} x4, batch 4 x 54^2 -> 216^2 ({row['params_m']:.2f} M "
+    print(f"{label} x4, batch 4 x 54^2 -> 216^2 ({row['params_m']:.2f} M "
           f"parameters): card f32 vs CPU plain path (1 image) max|d| "
           f"{err:.3e} <= {bound:.3e}; bf16 vs f32 PSNR "
           f"{row['psnr_bf16_vs_f32_db']:.2f} dB; {row['f32_ms']:.2f} ms f32, "
           f"{row['bf16_ms']:.2f} ms bf16 a request; launches {launches}; CPU "
           f"took {cpu_s:.1f} s [{smi}]")
     if not err <= bound:
-        fail(f"{name}: the card's output disagrees with the CPU plain path")
-    if name == "sragan":
-        paths["sragan_serving"] = launches
-        fused = create_generator("sragan", 4, rab_tail="fused")
-        fused.load_state_dict(state)  # strict: the same tree
-        fused_pred = Predictor(fused, 4)
-        reset_launches()
-        fused_out = fused_pred(batch)
-        torch.cuda.synchronize()
-        fused_launches = read_launches()
-        if fused_launches != forward_launches(fused):
-            fail(f"sragan fused forward launches {fused_launches} differ "
-                 f"from {forward_launches(fused)}")
+        fail(f"{label}: the card's output disagrees with the CPU plain path")
+    del pred, pred_bf16
+    if fused:
+        net = create_generator(name, 4, rab_tail="fused", **kwargs)
+        net.load_state_dict(state)  # strict: the same tree
+        fused_pred, fused_out, fused_launches = serve(net, "fused")
         fused_err = float(np.abs(fused_out - got).max())
         fused_bound = SLICE_TOL * float(np.abs(got).max())
         row.update(fused_max_abs_err=fused_err,
                    fused_f32_ms=latency_ms(fused_pred, batch, iters=5))
-        print(f"zoo sragan fused vs unfused on the card (4 x 54^2, f32): "
+        print(f"{label} fused vs unfused on the card (4 x 54^2, f32): "
               f"max|d| {fused_err:.3e} <= {fused_bound:.3e}; "
               f"{row['fused_f32_ms']:.2f} ms a request; launches "
               f"{fused_launches} [{smi}]")
         if not fused_err <= fused_bound:
-            fail("sragan: the fused forward disagrees with the unfused one")
-        paths["sragan_serving_fused"] = fused_launches
+            fail(f"{label}: the fused forward disagrees with the unfused one")
     return row
 
 
-def _zoo_gan_step(name: str, smi: str) -> dict:
-    """One bf16 step of ``name``'s x4 trainer at full width, batch 16, then
-    three timed ones: finite losses, ms per step."""
-    trainer = make_trainer("bf16", model=name)
+def _zoo_gan_step(name: str, smi: str, *, precision: str = "bf16",
+                  rab_tail: str = "unfused", model_kwargs: dict | None = None,
+                  steps: int = 3, median: bool = False,
+                  label: str | None = None) -> dict:
+    """One ``precision`` step of ``name``'s x4 trainer at full width, batch
+    16, its launches exact, then ``steps`` timed ones: finite losses, ms per
+    step, the mean over the steps or with ``median`` the median of steps
+    each closed by reading its losses."""
+    label = label or f"zoo {name}"
+    trainer = make_trainer(precision, rab_tail=rab_tail, model=name,
+                           **(model_kwargs or {}))
     batch = make_batch()
     reset_launches()
     metrics = trainer.train_step(batch)
     torch.cuda.synchronize()
     launches = read_launches()
     if launches != step_launches(trainer):
-        fail(f"{name} step launches {launches} differ from "
-             f"{step_launches(trainer)}")
-    steps = 3
-    t0 = time.perf_counter()
+        fail(f"{label} {precision} {rab_tail} step launches {launches} "
+             f"differ from {step_launches(trainer)}")
+    times = []
+    t_all = time.perf_counter()
     for _ in range(steps):
+        t0 = time.perf_counter()
         metrics = trainer.train_step(batch)
-    losses = {k: float(v) for k, v in metrics.items()}  # waits
-    ms = (time.perf_counter() - t0) / steps * 1e3
+        if median:
+            losses = {k: float(v) for k, v in metrics.items()}  # waits
+        times.append((time.perf_counter() - t0) * 1e3)
+    if median:
+        ms = float(np.median(times))
+    else:
+        losses = {k: float(v) for k, v in metrics.items()}  # waits
+        ms = (time.perf_counter() - t_all) / steps * 1e3
     mpix = 16 * 216 * 216 / 1e6
-    print(f"zoo {name} train step batch 16 x 54^2 -> 216^2 bf16 "
-          f"({trainer.cfg.gan.gan_type}): {ms:.2f} ms/step, "
-          f"{mpix / (ms / 1e3):.3f} MP/s; losses {losses} [{smi}]")
+    print(f"{label} train step batch 16 x 54^2 -> 216^2 {precision} "
+          f"{rab_tail} ({trainer.cfg.gan.gan_type}): {ms:.2f} ms/step"
+          f"{' (median)' if median else ''}, {mpix / (ms / 1e3):.3f} MP/s; "
+          f"launches {launches}; losses {losses} [{smi}]")
     if not np.isfinite(list(losses.values())).all():
-        fail(f"{name} bf16 step losses are not finite: {losses}")
+        fail(f"{label} {precision} step losses are not finite: {losses}")
     return {"ms_per_step": ms, "mp_per_s": mpix / (ms / 1e3),
-            "losses": losses}
+            "losses": losses, "launches": launches}
 
 
 def _zoo_cli_train(name: str, save_dir: str, smi: str) -> dict:
@@ -1907,7 +2028,9 @@ def phase_model_zoo(smi: str) -> dict:
                                             dtype=np.float32)
     forwards = {}
     for name in ZOO:
-        forwards[name] = _zoo_forward(name, batch, smi, paths)
+        forwards[name] = _zoo_forward(
+            name, batch, smi, paths, fused=name == "sragan",
+            path_key="sragan_serving" if name == "sragan" else None)
         torch.cuda.empty_cache()
 
     check = {"unfused": phase_train_correctness("unfused", None,
@@ -1933,6 +2056,7 @@ def phase_model_zoo(smi: str) -> dict:
     gan_steps = {}
     for name in ZOO_GAN_STEPS:
         gan_steps[name] = _zoo_gan_step(name, smi)
+        gan_steps[name].pop("launches")
         torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as save_dir:
@@ -1953,6 +2077,243 @@ def phase_model_zoo(smi: str) -> dict:
                                   for rab, c in check.items()},
             "gan_steps": gan_steps, "seconds": seconds,
             "launches_by_path": paths}
+
+
+# The attention grammar's ablations (phase_attention_grammar): the model,
+# its arguments, and the kernel launches of one no-grad forward at full
+# width as (K1, K2, K3, K6), unfused and with rab_tail="fused", counted
+# from the module code: 36 RAB tails (bla_mode) and 12 group tails
+# (rla_mode) in SRADSGAN, 60 block tails and 12 group tails ('CA-SA') in
+# SRAGAN; a tail runs K1 for an "Avg|Max" CA, K2 for an "Avg|Max" SA, and
+# K6 in place of both where it is fused ('CA-SA', "Avg|Max", the conv); the
+# global attention runs K3 where its mode holds an SA.
+GRAMMAR_CASES = {
+    "g_sa_ca": {"model": "sradsgan", "model_kwargs": {"bla_mode": "SA-CA"},
+                "forward": {"unfused": (48, 48, 1, 0),
+                            "fused": (36, 36, 1, 12)}},
+    "g_parallel": {"model": "sradsgan", "model_kwargs": {
+        "rla_mode": "CA|SA", "bla_mode": "CA|SA", "ga_mode": "CA|SA"},
+        "forward": {"unfused": (48, 48, 1, 0), "fused": (48, 48, 1, 0)}},
+    "g_single": {"model": "sradsgan", "model_kwargs": {
+        "bla_mode": "CA", "rla_mode": "SA", "ga_mode": "SA"},
+        "forward": {"unfused": (36, 12, 1, 0), "fused": (36, 12, 1, 0)}},
+    "g_noconv": {"model": "sradsgan", "model_kwargs": {"add_conv": False},
+                 "forward": {"unfused": (48, 48, 1, 0),
+                             "fused": (48, 48, 1, 0)}},
+    "g_conv_only": {"model": "sradsgan", "model_kwargs": {
+        "rla_mode": "", "bla_mode": "", "ga_mode": "CA"},
+        "forward": {"unfused": (0, 0, 0, 0), "fused": (0, 0, 0, 0)}},
+    "g_avg": {"model": "sradsgan", "model_kwargs": {"pool_mode": "Avg"},
+              "forward": {"unfused": (0, 0, 1, 0), "fused": (0, 0, 1, 0)}},
+    "g_max": {"model": "sradsgan", "model_kwargs": {"pool_mode": "Max"},
+              "forward": {"unfused": (0, 0, 1, 0), "fused": (0, 0, 1, 0)}},
+    "sragan_ga_sa_ca": {"model": "sragan", "model_kwargs": {
+        "ga_mode": "SA-CA"},
+        "forward": {"unfused": (72, 72, 1, 0), "fused": (0, 0, 1, 72)}},
+}
+# the cases also stepped fused (those whose fused tails differ from the
+# unfused ones, and one where the rule fuses none)
+GRAMMAR_FUSED_STEPS = ("g_sa_ca", "g_noconv")
+# the cases whose float32 step is held against float64 at phase 5's bars,
+# each tensor to max(bar, CONTROL_FACTOR x its kernel-free float32
+# readings), as SRAGAN_CHECK: the CPU's own float32 step of g_parallel
+# misses the fixed G bar (2.000e-3 of max|ref| at res_groups.11.ca.fc1,
+# the card 2.054e-3 there; H100 80GB HBM3, 700 W)
+GRAMMAR_GRAD_CHECKS = (("g_parallel", "unfused"), ("g_sa_ca", "fused"))
+GRAMMAR_TIMED_STEPS = 5
+
+
+def grammar_forward(case: str, rab_tail: str) -> dict:
+    """GRAMMAR_CASES' forward counts of ``case`` as launch counts."""
+    k1, k2, k3, k6 = GRAMMAR_CASES[case]["forward"][rab_tail]
+    return {"avg_max_pool": k1, "spatial_gate": k2, "position_attention": k3,
+            "spatial_gate_bwd": 0, "position_attention_bwd": 0,
+            "rab_tail": k6}
+
+
+def _grammar_case(case: str, smi: str, batch4: np.ndarray) -> dict:
+    """One ablation: (a) its x4 forward (:func:`_zoo_forward`), unfused and
+    fused, launches equal to GRAMMAR_CASES' table; (b) its WGAN-GP step at
+    batch 16, f32 and mixed precision, fused too for GRAMMAR_FUSED_STEPS
+    (:func:`_zoo_gan_step`, the median of GRAMMAR_TIMED_STEPS steps)."""
+    spec = GRAMMAR_CASES[case]
+    name, kwargs = spec["model"], spec["model_kwargs"]
+    label = f"grammar {case} ({name} {kwargs})"
+    paths = {}
+    row = _zoo_forward(name, batch4, smi, paths, model_kwargs=kwargs,
+                       fused=True, label=label,
+                       path_key=f"grammar_{case}_forward",
+                       expect={rab: grammar_forward(case, rab)
+                               for rab in ("unfused", "fused")})
+    tails = ("unfused", "fused") if case in GRAMMAR_FUSED_STEPS else (
+        "unfused",)
+    for precision in ("f32", "bf16"):
+        for rab in tails:
+            key = precision if rab == "unfused" else f"fused_{precision}"
+            step = _zoo_gan_step(name, smi, precision=precision,
+                                 rab_tail=rab, model_kwargs=kwargs,
+                                 steps=GRAMMAR_TIMED_STEPS, median=True,
+                                 label=label)
+            paths[f"grammar_{case}" + ("" if key == "f32" else f"_{key}")] = (
+                step["launches"])
+            row[f"{key}_ms_per_step"] = step["ms_per_step"]
+            row[f"{key}_mp_per_s"] = step["mp_per_s"]
+    torch.cuda.empty_cache()
+    return {"row": row, "paths": paths}
+
+
+def _library_on_card(smi: str) -> dict:
+    """The block library's networks at their published sizes on the card
+    against the CPU from the same seeded fan-in weights (zoo_init),
+    SLICE_TOL of max|ref| for each output; none may launch a port kernel.
+    The SN patch D takes one train-mode forward (its u moves by one power
+    iteration on both sides); the patch D with global attention gives its
+    WGAN-GP penalty (LOSS_TOL) and the penalty's D-parameter gradients (a
+    double backward through the plain CGAM and SGAM at 512; GRAD_TOL's D
+    bar, the gradients zero by the math left out) on both sides."""
+    from sradsgan_tpu_torch.losses.extra import downscale_loss
+    from sradsgan_tpu_torch.models.discriminators import (
+        PatchDiscriminator, SNPatchDiscriminator, VGGStyleDiscriminator)
+    from sradsgan_tpu_torch.nn.augmented_conv import AugmentedConv
+    from sradsgan_tpu_torch.nn.esrgan import RRDBNet, SRResNet
+    from sradsgan_tpu_torch.nn.extractors import (ResNet101FeatureExtractor,
+                                                  VGGFeatureExtractor)
+
+    rng = np.random.default_rng(11)
+
+    def image(b, size):
+        return torch.from_numpy(rng.random((b, 3, size, size),
+                                           dtype=np.float32))
+
+    cases = {
+        "rrdbnet_nf64_nb23": (lambda: RRDBNet(4), image(1, 32)),
+        "srresnet": (lambda: SRResNet(4), image(1, 54)),
+        "vgg_style_d_128": (lambda: VGGStyleDiscriminator(128), image(2,
+                                                                       128)),
+        "aa_conv_relative": (lambda: AugmentedConv(
+            64, 64, relative=True, shape=(32, 32)),
+            torch.from_numpy(rng.normal(0, 1, (2, 64, 32, 32))
+                             .astype(np.float32))),
+        "vgg19_conv5_4": (lambda: VGGFeatureExtractor(34), image(1, 224)),
+        "resnet101": (lambda: ResNet101FeatureExtractor(), image(1, 224)),
+        "sn_patch_d_train": (lambda: SNPatchDiscriminator(), image(2, 96)),
+    }
+    out, t0 = {}, time.perf_counter()
+    reset_launches()
+    for label, (make, x) in cases.items():
+        net = make()
+        zoo_init(net, seed=21)
+        train = label.endswith("_train")
+        cpu_net = copy.deepcopy(net).train(train)
+        card_net = net.to("cuda").train(train)
+        with torch.no_grad():
+            ref = cpu_net(x)
+            got = card_net(x.cuda()).cpu()
+        err = _max_rel(got, ref)
+        row = {"rel_err": err, "shape": list(got.shape)}
+        if train:
+            u_err = max(_max_rel(m.u, c.u) for m, c in zip(
+                card_net.modules(), cpu_net.modules()) if hasattr(m, "u"))
+            row["u_rel_err"] = u_err
+            err = max(err, u_err)
+        if not (torch.isfinite(got).all() and err <= SLICE_TOL):
+            fail(f"library {label}: card vs CPU {err:.3e} of max|ref|")
+        out[label] = row
+        del net, cpu_net, card_net
+    # the global-attention patch D under the penalty, in train mode as the
+    # trainer runs it (in eval mode the drawn running statistics leave the
+    # input gradient near zero and the penalty at 1)
+    d = PatchDiscriminator(use_attention=False, use_global_attention=True,
+                           seed=3)
+    zoo_init(d, seed=22)
+    # zero by the math too: the SGAM's value bias shifts the activations
+    # that reach the logits through the last (linear) conv alone, so the
+    # penalty's input gradient does not depend on it
+    skip = zero_by_math(d) | {n for n, _ in d.named_parameters()
+                              if n.endswith("value_conv.bias")}
+    real, fake, alpha = image(2, 96), image(2, 96), torch.rand(
+        (2, 1, 1, 1), generator=torch.Generator().manual_seed(4))
+    sides = {}
+    for dev, net in (("cpu", copy.deepcopy(d)), ("cuda", d.to("cuda"))):
+        gp = gan_losses.gradient_penalty(net, real.to(dev), fake.to(dev),
+                                         alpha.to(dev))
+        grads = torch.autograd.grad(gp, list(net.parameters()),
+                                    allow_unused=True)
+        sides[dev] = (float(gp.detach()), {n: g.cpu() for (n, _), g in zip(
+            net.named_parameters(), grads) if g is not None})
+    (gp_ref, g_ref), (gp_got, g_got) = sides["cpu"], sides["cuda"]
+    errs = sorted(((_max_rel(g_got[n], g), n) for n, g in g_ref.items()
+                   if n not in skip), reverse=True)
+    worst = errs[0]
+    print("library global-attention D penalty gradients, card of CPU, "
+          "worst: " + ", ".join(f"{n} {e:.3e}" for e, n in errs[:4]))
+    finite = np.isfinite(gp_got) and all(torch.isfinite(g).all()
+                                         for g in g_got.values())
+    sgam = [n for n in g_got if "query_conv" in n]
+    if not (finite and abs(gp_got - gp_ref) <= LOSS_TOL * max(abs(gp_ref),
+                                                               1e-2)
+            and worst[0] <= GRAD_TOL["discriminator"] and sgam
+            and float(g_got[sgam[0]].abs().max()) > 0):
+        fail(f"library global-attention D penalty: card {gp_got!r} vs CPU "
+             f"{gp_ref!r}, worst gradient {worst}, SGAM grads {sgam}")
+    out["patch_d_global_attention_gp"] = {
+        "gp": gp_got, "gp_cpu": gp_ref, "grad_worst": worst[1],
+        "grad_rel_err": worst[0], "tensors": len(g_got)}
+    sr, lr = image(2, 216).cuda(), image(2, 54).cuda()
+    out["downscale_loss"] = float(downscale_loss(sr, lr, 4))
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in read_launches().items() if n}
+    if launched:
+        fail(f"the block library launched port kernels: {launched}")
+    seconds = time.perf_counter() - t0
+    print(f"library on the card against the CPU (rel. to max|ref|, "
+          f"{seconds:.1f} s, no kernel launched): " + ", ".join(
+              f"{k} {v['rel_err']:.2e}" for k, v in out.items()
+              if isinstance(v, dict) and "rel_err" in v)
+          + f"; global-attention D penalty {gp_got:.6e} (CPU {gp_ref:.6e}), "
+          f"worst D gradient {worst[1]} {worst[0]:.2e} of {len(g_got)} "
+          f"[{smi}]")
+    return out
+
+
+def phase_attention_grammar(smi: str) -> dict:
+    """The attention grammar's ablations of SRADSGAN and SRAGAN's
+    ``ga_mode`` (GRAMMAR_CASES) at full width through the kernels, then the
+    block library on the card:
+
+    (a) each case's x4 forward against the CPU and fused against unfused,
+    with launches exact and equal to the table; its f32 and mixed WGAN-GP
+    steps at batch 16, launches exact, median ms (:func:`_grammar_case`,
+    through the zoo's :func:`_zoo_forward` and :func:`_zoo_gan_step`);
+    (b) one float32 step of the cases in GRAMMAR_GRAD_CHECKS against the
+    CPU's float64 step at the bars of phase 5, each tensor held to the
+    fixed bar or twice its kernel-free float32 readings
+    (:func:`phase_train_correctness` with ``kernel_free_control``);
+    (c) the library's networks at their published sizes
+    (:func:`_library_on_card`)."""
+    t_start = time.perf_counter()
+    batch4 = np.random.default_rng(3).random((4, 54, 54, 3),
+                                             dtype=np.float32)
+    rows, paths = {}, {}
+    for case in GRAMMAR_CASES:
+        res = _grammar_case(case, smi, batch4)
+        rows[case] = res["row"]
+        paths.update(res["paths"])
+    grad_checks = {}
+    for case, rab in GRAMMAR_GRAD_CHECKS:
+        spec = GRAMMAR_CASES[case]
+        check = {"model": spec["model"], "model_kwargs": spec["model_kwargs"],
+                 "gains": {}, "tol": GRAD_TOL, "kernel_free_control": True,
+                 "align_kinks": True}
+        res = phase_train_correctness(rab, None, check)
+        grad_checks[f"{case}_{rab}"] = res["grad_check"]
+        paths[f"grammar_{case}_grad_check_{rab}"] = res["launches"]
+        torch.cuda.empty_cache()
+    library = _library_on_card(smi)
+    seconds = time.perf_counter() - t_start
+    print(f"attention grammar phase: {seconds:.1f} s")
+    return {"cases": rows, "grad_checks": grad_checks, "library": library,
+            "seconds": seconds, "launches_by_path": paths}
 
 
 def phase_hat(smi: str) -> dict:
@@ -3096,6 +3457,7 @@ def main() -> int:
     cli_train = phase_cli_train(smi)
     eval_protocol = phase_eval_protocol(smi)
     zoo = phase_model_zoo(smi)
+    grammar = phase_attention_grammar(smi)
     hat = phase_hat(smi)
     exported = phase_export(smi)
     diffusion = phase_diffusion(smi)
@@ -3108,6 +3470,7 @@ def main() -> int:
              "cli_train_fused": cli_train["launches"],
              **eval_protocol.pop("launches_by_path"),
              **zoo.pop("launches_by_path"),
+             **grammar.pop("launches_by_path"),
              "train_ddp_nccl1": nccl1, "train_ddp_gloo2": gloo2,
              "tiled_one_process": tiled_launches,
              **{f"tiled_{k}_rank0": v["launches_rank0"]
@@ -3133,7 +3496,7 @@ def main() -> int:
                       "cli_train": {k: v for k, v in cli_train.items()
                                     if k != "launches"},
                       "eval_protocol": eval_protocol, "model_zoo": zoo,
-                      "hat": hat, "export": exported,
+                      "attention_grammar": grammar, "hat": hat, "export": exported,
                       "diffusion": diffusion,
                       "data_parallel": data_parallel,
                       "tiled_and_weights": tiled, "strips": plans,

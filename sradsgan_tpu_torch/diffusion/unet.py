@@ -44,6 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sradsgan_tpu_torch.nn.blocks import lecun_normal_
+
 GN_GROUPS = 32
 GN_EPS = 1e-6  # flax.linen.GroupNorm's default
 HEAD_CHANNELS = 64  # guided-diffusion's num_head_channels
@@ -252,14 +254,6 @@ class UNet(nn.Module):
         return self.out(h)
 
 
-def _lecun_normal(t: torch.Tensor, gen: torch.Generator) -> None:
-    """Flax's ``lecun_normal``: variance 1 / fan_in, a normal truncated at
-    two standard deviations (its stddev divided by 0.8796..., the standard
-    deviation of a unit normal so truncated)."""
-    std = (1.0 / t[0].numel()) ** 0.5 / 0.87962566103423978
-    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=gen)
-
-
 def flax_init(model: nn.Module, seed: int) -> None:
     """Give a model built on the meta device CPU storage and Flax's default
     init, drawn from ``torch.Generator().manual_seed(seed)`` in module
@@ -275,7 +269,7 @@ def flax_init(model: nn.Module, seed: int) -> None:
                 if getattr(m, "zero_init", False):
                     m.weight.zero_()
                 else:
-                    _lecun_normal(m.weight, gen)
+                    lecun_normal_(m.weight, gen)
                 m.bias.zero_()
             elif isinstance(m, nn.GroupNorm):
                 m.reset_parameters()

@@ -41,10 +41,13 @@ class MSB(nn.Module):
 
 class RAB(LocalAttention):
     """Residual attention block: 3x3 to 4C, lrelu(0.2), 3x3 back to C, then
-    CLAM + SLAM + 1x1 fuse, plus the block input."""
+    the local attention of ``la_mode`` (CLAM + SLAM + 1x1 fuse by default),
+    plus the block input."""
 
-    def __init__(self, features: int = 64, rab_tail: str = "unfused"):
-        super().__init__(features, rab_tail)
+    def __init__(self, features: int = 64, rab_tail: str = "unfused",
+                 la_mode: str = "CA-SA", pool_mode: str = "Avg|Max",
+                 add_conv: bool = True):
+        super().__init__(features, rab_tail, la_mode, pool_mode, add_conv)
         self.conv1 = nn.Conv2d(features, 4 * features, 3, padding=1)
         self.conv2 = nn.Conv2d(4 * features, features, 3, padding=1)
 
@@ -54,13 +57,17 @@ class RAB(LocalAttention):
 
 
 class ResGroup(LocalAttention):
-    """``n_blocks`` RABs (``RG``), group-level local attention, skip."""
+    """``n_blocks`` RABs (``RG``) with ``bla_mode``, group-level local
+    attention of ``rla_mode``, skip."""
 
     def __init__(self, features: int = 64, n_blocks: int = 3,
-                 rab_tail: str = "unfused"):
-        super().__init__(features, rab_tail)
-        self.RG = nn.ModuleList(RAB(features, rab_tail)
-                                for _ in range(n_blocks))
+                 rab_tail: str = "unfused", rla_mode: str = "CA-SA",
+                 bla_mode: str = "CA-SA", pool_mode: str = "Avg|Max",
+                 add_conv: bool = True):
+        super().__init__(features, rab_tail, rla_mode, pool_mode, add_conv)
+        self.RG = nn.ModuleList(
+            RAB(features, rab_tail, bla_mode, pool_mode, add_conv)
+            for _ in range(n_blocks))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = x
@@ -72,8 +79,9 @@ class ResGroup(LocalAttention):
 class GABUp(GlobalAttention):
     """GAB_UP: global attention, then the shared sub-pixel upsample."""
 
-    def __init__(self, features: int, scale: int):
-        super().__init__(features)
+    def __init__(self, features: int, scale: int, ga_mode: str = "CA-SA",
+                 add_conv: bool = True):
+        super().__init__(features, ga_mode, add_conv)
         self.upsampling = UpsampleHead(features, scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -86,14 +94,25 @@ class SRADSGANGenerator(nn.Module):
     Weights are drawn from ``torch.Generator().manual_seed(seed)`` on the
     CPU, as the JAX package inits them: conv and MLP kernels normal(0.02),
     biases and the attention gains ``gamma`` zero; then the module moves to
-    ``device``.  ``rab_tail="fused"`` runs the 48 RAB and group tails
-    (CLAM + SLAM + 1x1 fuse + residual) in the fused RAB-tail op; the
-    weights and the ``state_dict`` are the same either way.
+    ``device``.
+
+    The attention grammar of the paper's ablations, JAX's arguments and
+    defaults: ``bla_mode`` the RABs' local attention, ``rla_mode`` the
+    groups', ``ga_mode`` GAB_UP's global attention, ``pool_mode`` the
+    gates' statistics ("Avg|Max", "Avg", "Max"), ``add_conv`` the 1x1 conv
+    after a sequential composition (``nn/attention.py``).
+    ``rab_tail="fused"`` runs in the fused RAB-tail op each RAB and group
+    tail that JAX would fuse ('CA-SA', "Avg|Max", with the conv: all 48 at
+    the defaults), the others unfused; the weights and the ``state_dict``
+    are the same either way.
     """
 
     def __init__(self, scale: int = 4, num_channels: int = 3,
                  base_filters: int = 64, n_groups: int = 12,
-                 n_blocks: int = 3, rab_tail: str = "unfused", *,
+                 n_blocks: int = 3, rla_mode: str = "CA-SA",
+                 bla_mode: str = "CA-SA", ga_mode: str = "CA-SA",
+                 pool_mode: str = "Avg|Max", add_conv: bool = True,
+                 rab_tail: str = "unfused", *,
                  seed: int = 0, device: torch.device | str = "cpu"):
         super().__init__()
         f = base_filters
@@ -101,8 +120,9 @@ class SRADSGANGenerator(nn.Module):
             self.conv1 = ConvBlock(num_channels, f, activation="lrelu01")
             self.MSB = MSB(num_channels, f)
             self.res_groups = nn.ModuleList(
-                ResGroup(f, n_blocks, rab_tail) for _ in range(n_groups))
-            self.GAB_UP = GABUp(f, scale)
+                ResGroup(f, n_blocks, rab_tail, rla_mode, bla_mode,
+                         pool_mode, add_conv) for _ in range(n_groups))
+            self.GAB_UP = GABUp(f, scale, ga_mode, add_conv)
             self.conv3 = ConvBlock(f, num_channels)
         materialize(self, seed)
         self.to(device)

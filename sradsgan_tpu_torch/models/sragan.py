@@ -70,15 +70,18 @@ class SRAGANGenerator(GlobalAttention):
     """(B, num_channels, H, W) -> (B, num_channels, sH, sW) in [-1, 1],
     weights drawn as the JAX package inits them (the gains ``gamma``
     zero).  The global attention's ``ca``, ``sa`` and ``conv`` are the
-    generator's own, as in the reference's ``state_dict``."""
+    generator's own, as in the reference's ``state_dict``; ``ga_mode``
+    composes them by the grammar (``nn/attention.py``), always with the
+    conv, as JAX's ``SRAGANGenerator`` does; the groups stay 'CA-SA'."""
 
     def __init__(self, scale: int = 4, num_channels: int = 3,
                  base_filters: int = 64, n_groups: int = 12,
-                 n_blocks: int = 5, rab_tail: str = "unfused", *,
+                 n_blocks: int = 5, ga_mode: str = "CA-SA",
+                 rab_tail: str = "unfused", *,
                  seed: int = 0, device: torch.device | str = "cpu"):
         f = base_filters
         with torch.device("meta"):  # skip torch's default init
-            super().__init__(f)
+            super().__init__(f, ga_mode)
             self.conv1 = ConvBlock(num_channels, f, "lrelu01")
             self.res_blocks = nn.ModuleList(
                 SRAGANGroup(f, n_blocks, rab_tail) for _ in range(n_groups))

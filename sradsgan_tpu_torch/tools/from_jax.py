@@ -13,6 +13,13 @@ VGG19 content features (the JAX param tree, or the ``.npz`` of
 ``SRADSGAN_TPU_VGG19_NPZ`` read with :func:`load_npz`), and
 :func:`lpips_state_dict` LPIPS (its trunk, as the ``.npz`` of
 ``SRADSGAN_TPU_{ALEXNET,VGG16,SQUEEZENET}_NPZ`` holds it, and its heads).
+The block library's networks have theirs: the VGG-style and spectrally
+normalized discriminators (the latter with each conv's ``u`` from the
+``spectral`` collection), ``RRDBNet``, ``SRResNet``, ``DeconvBlock`` and
+``Upsample2xBlock`` (a transposed conv's kernel flipped, see
+:meth:`_StateDict.conv_transpose`), AA-conv and the three feature
+extractors; the attention grammar's nodes map whichever submodules a mode
+holds (:func:`local_attention_state_dict`).
 Conv kernels go HWIO -> OIHW, Dense kernels (in, out) -> 1x1 convs (out,
 in, 1, 1) (the reference's attention MLPs are convs) or, where the
 reference has a linear layer (HAT's), -> (out, in), LayerNorm scale and
@@ -38,8 +45,9 @@ import torch
 
 from sradsgan_tpu_torch.losses.lpips import NETS as LPIPS_NETS
 from sradsgan_tpu_torch.losses.vgg import LAYERS as VGG_LAYERS
-from sradsgan_tpu_torch.models.discriminators import (ATTENTION_AFTER,
-                                                      DEFAULT_BLOCKS)
+from sradsgan_tpu_torch.models.discriminators import (
+    ATTENTION_AFTER, DEFAULT_BLOCKS, GLOBAL_ATTENTION_AFTER)
+from sradsgan_tpu_torch.nn.extractors import VGG19_PLAN
 
 Tree = Mapping[str, Any]
 
@@ -66,6 +74,15 @@ class _StateDict(dict):
         if bias:
             self[f"{name}.bias"] = _f32(node["bias"])
 
+    def conv_transpose(self, name: str, node: Tree) -> None:
+        """Flax ``ConvTranspose`` (kh, kw, in, out) -> the port's
+        ``SameConvTranspose2d`` (in, out, kh, kw), flipped in both spatial
+        axes: Flax correlates the kernel unflipped, torch flipped."""
+        kernel = np.asarray(node["kernel"], np.float32)
+        self[f"{name}.weight"] = np.ascontiguousarray(
+            kernel.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+        self[f"{name}.bias"] = _f32(node["bias"])
+
     def dense(self, name: str, node: Tree, bias: bool = True) -> None:
         """A Dense layer as the reference's 1x1 conv."""
         self[f"{name}.weight"] = _dense_as_conv(node["kernel"])
@@ -89,23 +106,35 @@ class _StateDict(dict):
         self[f"{name}.num_batches_tracked"] = np.array(0, np.int64)
 
     def local_attention(self, prefix: str, node: Tree) -> None:
-        """CLAM (bias-free MLP), SLAM kernel and 1x1 fuse conv."""
-        gate = node["ChannelGate_0"]
-        self.dense(f"{prefix}ca.fc1", gate["Dense_0"], bias=False)
-        self.dense(f"{prefix}ca.fc2", gate["Dense_1"], bias=False)
-        self.conv(f"{prefix}sa.conv1", node["SpatialGate_0"]["Conv_0"],
-                  bias=False)
-        self.conv(f"{prefix}conv", node["Conv_0"])
+        """CLAM (bias-free MLP), SLAM kernel ((7, 7, 2 or 1, 1), one input
+        plane a statistic) and 1x1 conv (C or 2C -> C): whichever of them
+        the node of a grammar mode holds."""
+        if "ChannelGate_0" in node:
+            gate = node["ChannelGate_0"]
+            self.dense(f"{prefix}ca.fc1", gate["Dense_0"], bias=False)
+            self.dense(f"{prefix}ca.fc2", gate["Dense_1"], bias=False)
+        if "SpatialGate_0" in node:
+            self.conv(f"{prefix}sa.conv1", node["SpatialGate_0"]["Conv_0"],
+                      bias=False)
+        if "Conv_0" in node:
+            self.conv(f"{prefix}conv", node["Conv_0"])
 
     def global_attention(self, prefix: str, node: Tree) -> None:
-        """CGAM gain, SGAM q/k/v convs and gain, 1x1 fuse conv."""
-        self[f"{prefix}ca.gamma"] = _f32(
-            node["ChannelSelfAttention_0"]["gamma"])
-        sgam = node["SpatialSelfAttention_0"]
-        for i, name in enumerate(("query_conv", "key_conv", "value_conv")):
-            self.conv(f"{prefix}sa.{name}", sgam[f"Conv_{i}"])
-        self[f"{prefix}sa.gamma"] = _f32(sgam["gamma"])
-        self.conv(f"{prefix}conv", node["Conv_0"])
+        """CGAM gain, SGAM q/k/v convs and gain, 1x1 conv: whichever of
+        them the node of a grammar mode holds."""
+        if "ChannelSelfAttention_0" in node:
+            self[f"{prefix}ca.gamma"] = _f32(
+                node["ChannelSelfAttention_0"]["gamma"])
+        if "SpatialSelfAttention_0" in node:
+            self.sgam(f"{prefix}sa", node["SpatialSelfAttention_0"])
+        if "Conv_0" in node:
+            self.conv(f"{prefix}conv", node["Conv_0"])
+
+    def sgam(self, name: str, node: Tree) -> None:
+        """SGAM: q/k/v convs and gain."""
+        for i, conv in enumerate(("query_conv", "key_conv", "value_conv")):
+            self.conv(f"{name}.{conv}", node[f"Conv_{i}"])
+        self[f"{name}.gamma"] = _f32(node["gamma"])
 
     def tensors(self) -> Dict[str, torch.Tensor]:
         return _as_tensors(self)
@@ -153,6 +182,22 @@ def sradsgan_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
     sd.global_attention("GAB_UP.", params["GlobalAttention_0"])
     sd.conv("GAB_UP.upsampling.0", params["UpsampleHead_0"]["Conv_0"])
     sd.conv("conv3.0", params["ConvBlock_0"]["Conv_0"])
+    return sd.tensors()
+
+
+def local_attention_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``LocalAttention`` params of any grammar mode -> the port's
+    ``LocalAttention`` state dict."""
+    sd = _StateDict()
+    sd.local_attention("", _params(params))
+    return sd.tensors()
+
+
+def global_attention_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``GlobalAttention`` params of any grammar mode -> the port's
+    ``GlobalAttention`` state dict."""
+    sd = _StateDict()
+    sd.global_attention("", _params(params))
     return sd.tensors()
 
 
@@ -526,13 +571,15 @@ def _as_tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 def discriminator_state_dict(
         variables: Tree,
         blocks: Sequence[Tuple[int, int, bool]] = DEFAULT_BLOCKS,
-        use_attention: bool = True) -> Dict[str, torch.Tensor]:
+        use_attention: bool = True,
+        use_global_attention: bool = False) -> Dict[str, torch.Tensor]:
     """JAX ``PatchDiscriminator`` variables (``{"params", "batch_stats"}``)
     -> the port's ``PatchDiscriminator`` state dict: convs OIHW (any kernel
     size), BatchNorm scale and bias as weight and bias with their running
     mean and variance, the CBAM's Dense kernels as 1x1 convs and its gate
-    kernel as (1, 2, 7, 7).  The walk follows the port's flat ``model``
-    Sequential."""
+    kernel as (1, 2, 7, 7), with ``use_global_attention`` the CGAM's gain
+    and the SGAM's convs and gain.  The walk follows the port's flat
+    ``model`` Sequential."""
     params, stats = variables["params"], variables["batch_stats"]
     sd = _StateDict()
     seq = conv_i = bn_i = 0
@@ -551,7 +598,205 @@ def discriminator_state_dict(
             sd.conv(f"model.{seq + 1}.conv1",
                     params["SpatialGate_0"]["Conv_0"], bias=False)
             seq += 2
+        if use_global_attention and i == GLOBAL_ATTENTION_AFTER:
+            sd[f"model.{seq}.gamma"] = _f32(
+                params["ChannelSelfAttention_0"]["gamma"])
+            sd.sgam(f"model.{seq + 1}", params["SpatialSelfAttention_0"])
+            seq += 2
     sd.conv(f"model.{seq}", params[f"Conv_{conv_i}"])
+    return sd.tensors()
+
+
+def sn_patch_discriminator_state_dict(variables: Tree
+                                      ) -> Dict[str, torch.Tensor]:
+    """JAX ``SNPatchDiscriminator`` variables (``{"params", "spectral"}``)
+    -> the port's ``SNPatchDiscriminator`` state dict: each ``SNConv_i``'s
+    kernel, bias and power-iteration vector ``u``, then the last conv."""
+    params, spectral = variables["params"], variables["spectral"]
+    sd = _StateDict()
+    n = _count(params, "SNConv_")
+    for i in range(n):
+        sd.conv(f"model.{2 * i}", params[f"SNConv_{i}"])
+        sd[f"model.{2 * i}.u"] = _f32(spectral[f"SNConv_{i}"]["u"])
+    sd.conv(f"model.{2 * n}", params["Conv_0"])
+    return sd.tensors()
+
+
+def vgg_style_discriminator_state_dict(variables: Tree
+                                       ) -> Dict[str, torch.Tensor]:
+    """JAX ``VGGStyleDiscriminator`` variables -> the port's: per stage the
+    3x3 conv (a bias in the first stage only), its BatchNorm (not in the
+    first), the 4x4 conv and its BatchNorm, in ``features``; the two Dense
+    layers as ``classifier.0`` and ``classifier.2`` (the port flattens in
+    JAX's NHWC order)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = _StateDict()
+    seq = bn_i = 0
+
+    def bn() -> None:
+        nonlocal seq, bn_i
+        name = f"BatchNorm_{bn_i}"
+        sd.batch_norm(f"features.{seq}", params[name], stats[name])
+        seq, bn_i = seq + 1, bn_i + 1
+
+    for i in range(_count(params, "Conv_") // 2):
+        sd.conv(f"features.{seq}", params[f"Conv_{2 * i}"], bias=i == 0)
+        seq += 1
+        if i > 0:
+            bn()
+        seq += 1  # LeakyReLU
+        sd.conv(f"features.{seq}", params[f"Conv_{2 * i + 1}"], bias=False)
+        seq += 1
+        bn()
+        seq += 1  # LeakyReLU
+    sd.linear("classifier.0", params["Dense_0"])
+    sd.linear("classifier.2", params["Dense_1"])
+    return sd.tensors()
+
+
+def rrdbnet_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``RRDBNet`` params -> the port's ``RRDBNet`` state dict."""
+    params = _params(params)
+    sd = _StateDict()
+    sd.conv("conv_first", params["Conv_0"])
+    for b in range(_count(params, "RRDB_")):
+        rrdb = params[f"RRDB_{b}"]
+        for r in range(3):
+            rdb = rrdb[f"ResidualDenseBlock5C_{r}"]
+            for c in range(5):
+                sd.conv(f"trunk.{b}.RDB{r + 1}.conv{c + 1}", rdb[f"Conv_{c}"])
+    sd.conv("trunk_conv", params["Conv_1"])
+    up = params["UpsampleHead_0"]
+    for n in range(_stages(up)):
+        sd.conv(f"upsampling.{2 * n}", up[f"Conv_{n}"])
+    sd.conv("HRconv.0", params["ConvBlock_0"]["Conv_0"])
+    sd.conv("conv_last.0", params["ConvBlock_1"]["Conv_0"])
+    return sd.tensors()
+
+
+def srresnet_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``SRResNet`` params -> the port's ``SRResNet`` state dict."""
+    params = _params(params)
+    sd = _StateDict()
+    nb = (_count(params, "ConvBlock_") - 3) // 2
+    sd.conv("conv_first.0", params["ConvBlock_0"]["Conv_0"])
+    for b in range(nb):
+        for j in (0, 1):
+            sd.conv(f"body.{b}.conv{j + 1}",
+                    params[f"ConvBlock_{1 + 2 * b + j}"]["Conv_0"])
+    sd.conv("trunk_conv.0", params[f"ConvBlock_{1 + 2 * nb}"]["Conv_0"])
+    up = params["UpsampleHead_0"]
+    for n in range(_stages(up)):
+        sd.conv(f"upsampling.{2 * n}", up[f"Conv_{n}"])
+    sd.conv("conv_last.0", params[f"ConvBlock_{2 + 2 * nb}"]["Conv_0"])
+    return sd.tensors()
+
+
+def deconv_block_state_dict(variables: Tree, prefix: str = ""
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX ``DeconvBlock`` variables (``{"params"[, "batch_stats"]}``) ->
+    the port's ``DeconvBlock``: the transposed conv, flipped, as
+    ``deconv``, the BatchNorm as ``bn``."""
+    params = _params(variables)
+    sd = _StateDict()
+    sd.conv_transpose(f"{prefix}deconv", params["ConvTranspose_0"])
+    if "BatchNorm_0" in params:
+        sd.batch_norm(f"{prefix}bn", params["BatchNorm_0"],
+                      variables["batch_stats"]["BatchNorm_0"])
+    return sd.tensors()
+
+
+def upsample2x_state_dict(variables: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``Upsample2xBlock`` variables -> the port's: 'deconv' its
+    ``DeconvBlock_0`` as ``upsample``, 'ps' and 'rnc' the conv as ``conv``
+    and the BatchNorm as ``bn``."""
+    params = _params(variables)
+    if "DeconvBlock_0" in params:
+        stats = variables.get("batch_stats", {}).get("DeconvBlock_0", {})
+        return deconv_block_state_dict(
+            {"params": params["DeconvBlock_0"], "batch_stats": stats},
+            "upsample.")
+    sd = _StateDict()
+    sd.conv("conv", params["Conv_0"])
+    if "BatchNorm_0" in params:
+        sd.batch_norm("bn", params["BatchNorm_0"],
+                      variables["batch_stats"]["BatchNorm_0"])
+    return sd.tensors()
+
+
+def augmented_conv_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``AugmentedConv`` params -> the port's: ``conv_out``,
+    ``qkv_conv``, ``attn_out`` and, with relative logits, ``key_rel_w``
+    and ``key_rel_h`` as they are."""
+    params = _params(params)
+    sd = _StateDict()
+    for i, name in enumerate(("conv_out", "qkv_conv", "attn_out")):
+        sd.conv(name, params[f"Conv_{i}"])
+    for name in ("key_rel_w", "key_rel_h"):
+        if name in params:
+            sd[name] = _f32(params[name])
+    return sd.tensors()
+
+
+def vgg_feature_extractor_state_dict(variables: Tree, feature_layer: int = 34,
+                                     use_bn: bool = False
+                                     ) -> Dict[str, torch.Tensor]:
+    """JAX ``VGGFeatureExtractor`` variables -> the port's: the convs
+    ``conv{stage}_{i}`` (and with ``use_bn`` the BatchNorms in order) at
+    torchvision's ``features.{index}``, up to ``feature_layer``."""
+    params = _params(variables)
+    sd = _StateDict()
+    idx = bn_i = 0
+    for stage, (_, n_convs) in enumerate(VGG19_PLAN, 1):
+        for c in range(1, n_convs + 1):
+            if idx > feature_layer:
+                return sd.tensors()
+            sd.conv(f"features.{idx}", params[f"conv{stage}_{c}"])
+            idx += 1
+            if use_bn:
+                name = f"BatchNorm_{bn_i}"
+                sd.batch_norm(f"features.{idx}", params[name],
+                              variables["batch_stats"][name])
+                bn_i += 1
+            idx += 2 if use_bn else 1  # (BatchNorm and) ReLU
+        idx += 1  # max pool
+    return sd.tensors()
+
+
+def resnet101_state_dict(variables: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``ResNet101FeatureExtractor`` variables -> the port's: the stem
+    conv and BatchNorm at ``features.0`` / ``.1``, then each
+    ``_Bottleneck_i`` (numbered through all stages) at ``features.{4 +
+    stage}.{block}``: ``Conv_0..2`` / ``BatchNorm_0..2`` as ``conv1..3`` /
+    ``bn1..3``, ``Conv_3`` / ``BatchNorm_3`` as ``downsample.0`` / ``.1``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = _StateDict()
+    sd.conv("features.0", params["Conv_0"], bias=False)
+    sd.batch_norm("features.1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    stage, b = -1, 0
+    for k in range(_count(params, "_Bottleneck_")):
+        node, st = params[f"_Bottleneck_{k}"], stats[f"_Bottleneck_{k}"]
+        if "Conv_3" in node:  # a downsample opens each stage
+            stage, b = stage + 1, 0
+        prefix = f"features.{4 + stage}.{b}"
+        for j in range(3):
+            sd.conv(f"{prefix}.conv{j + 1}", node[f"Conv_{j}"], bias=False)
+            sd.batch_norm(f"{prefix}.bn{j + 1}", node[f"BatchNorm_{j}"],
+                          st[f"BatchNorm_{j}"])
+        if "Conv_3" in node:
+            sd.conv(f"{prefix}.downsample.0", node["Conv_3"], bias=False)
+            sd.batch_norm(f"{prefix}.downsample.1", node["BatchNorm_3"],
+                          st["BatchNorm_3"])
+        b += 1
+    return sd.tensors()
+
+
+def minc_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``MINCNet`` params -> the port's (the same conv names)."""
+    params = _params(params)
+    sd = _StateDict()
+    for name, node in params.items():
+        sd.conv(name, node)
     return sd.tensors()
 
 

@@ -20,9 +20,18 @@ a reference state dict is the port's state dict but for a few keys:
   ``rpi_oca(window, overlap_ratio)``, an ``attn_mask`` of nW windows the
   shifted-window mask of a square image of sqrt(nW) windows a side, or the
   function raises;
-- any other key is dropped.
+- a key of an attention grammar's own submodules (``ca``, ``sa`` or
+  ``conv`` under a ``LocalAttention`` or ``GlobalAttention``: a RAB, a
+  ResGroup, GAB_UP, SRAGAN's global attention) that the port's module lacks
+  raises: it belongs to another variant of this one (a mode with a conv
+  where the port's has none, say), whose weights would otherwise load
+  into the wrong composition;
+- any other key is dropped, as the JAX readers read only the keys they
+  need.
 
-What was dropped is reported in one ``UserWarning``.  The ten networks are
+What was dropped is reported in one ``UserWarning``.  A variant is built by
+name with the generator's arguments (``load_reference("sradsgan", path,
+bla_mode="SA-CA")``).  The ten networks are
 the nine generators of the registry (``models.available_models()``) and
 ``"discriminator"``, the patch D (``PatchDiscriminator``; its ``blocks``,
 ``kernel_size`` and ``use_attention`` as keyword arguments).
@@ -107,15 +116,25 @@ def _check_hat_buffer(key: str, value: torch.Tensor,
                          f"(window {win}, overlap {tables['overlap_ratio']})")
 
 
+_GRAMMAR_PARTS = ("ca", "sa", "conv")
+
+
+def _grammar_prefixes(template: nn.Module) -> List[str]:
+    """The key prefixes of the attention compositions in ``template``."""
+    from sradsgan_tpu_torch.nn.attention import GlobalAttention, LocalAttention
+    return [f"{name}." if name else "" for name, m in template.named_modules()
+            if isinstance(m, (LocalAttention, GlobalAttention))]
+
+
 def reference_state_dict(model: str, state: Mapping[str, Any],
                          scale: int = 4,
                          **model_kwargs) -> Dict[str, torch.Tensor]:
     """The port's state dict of ``model`` (a generator's name, or
     ``"discriminator"``) built with ``scale`` and ``model_kwargs``, from a
     reference state dict: float32 copies on the CPU, ``num_batches_tracked``
-    0.  Raises ``KeyError`` for a missing key and ``ValueError`` for a shape
-    that differs or a HAT index buffer that does not match; warns with the
-    keys it dropped."""
+    0.  Raises ``KeyError`` for a missing key and ``ValueError`` for an
+    attention key of another variant, a shape that differs or a HAT index
+    buffer that does not match; warns with the keys it dropped."""
     model = model.lower()
     return _convert(model, _template(model, scale, model_kwargs), state)
 
@@ -143,6 +162,15 @@ def _convert(model: str, template: nn.Module,
         out[key] = value.detach().to(torch.float32, copy=True)
     dropped: List[str] = [k for k in state if k not in want
                           or k.endswith("num_batches_tracked")]
+    grammars = _grammar_prefixes(template)
+    unexpected = [k for k in dropped if k not in want
+                  and any(k.startswith(p) and k[len(p):].split(".")[0]
+                          in _GRAMMAR_PARTS for p in grammars)]
+    if unexpected:
+        raise ValueError(f"the reference state dict holds {len(unexpected)} "
+                         f"attention key(s) that this variant of {model} "
+                         f"does not: {unexpected[:8]}"
+                         f"{' ...' if len(unexpected) > 8 else ''}")
     if model == "hat":
         tables = _hat_tables(template)
         for key in dropped:

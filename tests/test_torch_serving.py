@@ -78,8 +78,9 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
     sragan``, on the synthetic set at tiny sizes, ``export`` of a tiny
     HAT read back by ``serving.load_exported``, and ``diffusion-train``
     with the diffusion modules, the data mesh and the ranks' worker of the
-    data-parallel checks, the reference and torchvision weight readers and
-    the report and wandb utilities."""
+    data-parallel checks, the reference and torchvision weight readers, the
+    report and wandb utilities, and the block library (spectral norm,
+    ESRGAN nets, extractors, AA-conv, the extra losses)."""
     tiny = json.dumps({"base_filters": 16, "n_groups": 1, "n_blocks": 1})
     flags = ["--device", "cpu", "--data", "synthetic", "--scale", "2",
              "--crop-size", "32", "--lpips", "--save-dir", str(tmp_path),
@@ -140,6 +141,12 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
             "import sradsgan_tpu_torch.tools.convert_torch\n"
             "import sradsgan_tpu_torch.utils.report\n"
             "import sradsgan_tpu_torch.utils.wandb_logger\n"
+            "import sradsgan_tpu_torch.nn.attention\n"
+            "import sradsgan_tpu_torch.nn.spectral_norm\n"
+            "import sradsgan_tpu_torch.nn.esrgan\n"
+            "import sradsgan_tpu_torch.nn.extractors\n"
+            "import sradsgan_tpu_torch.nn.augmented_conv\n"
+            "import sradsgan_tpu_torch.losses.extra\n"
             f"for argv in {commands!r}:\n"
             "    assert sradsgan_tpu_torch.cli.main(argv) == 0\n"
             "import numpy as np\n"
