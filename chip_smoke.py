@@ -138,7 +138,24 @@ Phases, each of which raises (exit code 1) on failure:
    alternating turns; (d) a seeded flagship and HAT written as the
    reference's ``.pkl`` and read back by ``tools/from_reference.py``, and
    a torchvision-layout VGG19 ``.pth`` read by ``load_vgg19``, each
-   bit-equal on the card to the module it came from.
+   bit-equal on the card to the module it came from;
+15. the data variants and the offline tools (needs Pillow): (a)
+   ``ops/degrade.srmd_preprocess`` at 16 x 216^2, 21^2 kernels, x4, noise
+   0.01, isotropic and anisotropic, within 1e-5 of the CPU composition of
+   the same draws, ms a call; on a UCMerced-shaped tree made from a seed
+   (21 classes x 20 pngs of 256^2): (b) ``FolderDataset(augment=True)``,
+   ``AugmentedCropDataset``, ``NoisyDataset`` (gaussian, sp, poisson) and
+   ``BlurDegradedDataset`` at 216^2, x4, through the loader at batch 16
+   with ``augment_rng``, host images/s, each feeding two float32 flagship
+   steps with exact launches and finite losses; (c) ``prepare_triplets``
+   (images/s) feeding ``TripletFolderDataset(hflip=True)``, and
+   ``iter_triplet_records`` a dict-backed ``LMDBTripletDataset``, each
+   feeding two ``DiffusionTrainer`` steps at 4 x 216^2, no kernel
+   launched; (d) ``SceneClassifier(image_size=216)``: feature images/s,
+   eight images' features within 1e-4 of max|ref| of the CPU, the head's
+   training ms and its accuracy over the tree; (e) ``tools/dryrun.entry()``
+   on the card against the CPU with exact launches, and
+   ``dryrun_multichip`` over one NCCL rank a card.
 
 It prints the kernels' record as one JSON line before the last, and ends
 with ``{"ok": true, "device": {...}}``.
@@ -150,6 +167,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1626,8 +1644,8 @@ class _FirstImages:
     def __len__(self):
         return self.n
 
-    def load(self, index: int):
-        return self.dataset.load(index)
+    def load(self, index: int, rng=None):
+        return self.dataset.load(index, rng)
 
 
 def _row_faults(got: dict, want: dict, what: str) -> list:
@@ -3436,6 +3454,398 @@ def phase_tiled_and_weights(smi: str, tiled_runs: dict | None = None
     return out, launches
 
 
+DATA_TREE = {"classes": 21, "per_class": 20, "size": 256, "seed": 14}
+DATA_CROP, DATA_SCALE, DATA_BATCH, DATA_STEPS = 216, 4, 16, 2
+DATA_FEED_BATCHES = 4   # batches read per dataset for its images/s
+GDP_BATCH = 4
+SRMD = {"batch": 16, "size": 216, "kernel": 21, "scale": 4, "noise": 0.01}
+SRMD_TOL = 1e-5         # absolute, card against the CPU composition
+SRMD_KERNEL_TOL = 1e-6  # absolute, card kernels against the CPU's
+SCENE_CHECK_IMAGES = 8
+SCENE_TOL = 1e-4        # of max|ref|, card features against the CPU's
+
+
+class DictEnv:
+    """lmdb's ``begin()`` transaction interface over a dict of records."""
+
+    def __init__(self, store: dict):
+        self.store = store
+
+    @contextlib.contextmanager
+    def begin(self, write: bool = False):
+        yield types.SimpleNamespace(get=self.store.get)
+
+
+def make_class_tree(root: str) -> list:
+    """A UCMerced-shaped tree from DATA_TREE's seed: ``classes`` folders of
+    ``per_class`` ``size``^2 pngs, each a class colour under smooth and
+    fine random texture (so that a random VGG16 trunk still separates the
+    classes); returns the files."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    t = DATA_TREE
+    rng = np.random.default_rng(t["seed"])
+    colours = rng.uniform(40, 215, (t["classes"], 3))
+    jobs = []
+    for c in range(t["classes"]):
+        folder = os.path.join(root, f"class{c:02d}")
+        os.makedirs(folder)
+        for i in range(t["per_class"]):
+            coarse = rng.normal(0, 30, (8, 8, 3))
+            fine = rng.normal(0, 12, (t["size"], t["size"], 3))
+            jobs.append((os.path.join(folder, f"{i:03d}.png"), colours[c],
+                         coarse, fine))
+
+    def write(job):
+        path, colour, coarse, fine = job
+        up = np.kron(coarse, np.ones((t["size"] // 8, t["size"] // 8, 1)))
+        arr = np.clip(colour + up + fine, 0, 255).astype(np.uint8)
+        Image.fromarray(arr).save(path)
+        return path
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(write, jobs))
+
+
+def _srmd_check(smi: str) -> dict:
+    """(a) ``srmd_preprocess`` at SRMD's sizes on the card, isotropic and
+    anisotropic.  Its uniform draws (sigma_x, then sigma_y and theta when
+    anisotropic) and its noise are replayed from a second generator of the
+    seed and moved to the CPU; the card's kernels are held to the CPU's
+    ``gaussian_kernels_from`` of those draws within SRMD_KERNEL_TOL, and
+    its LR to the CPU composition (``srmd_preprocess_from``) within
+    SRMD_TOL.  ms a call (draws included) by CUDA events."""
+    from sradsgan_tpu_torch.ops import degrade
+
+    s = SRMD
+    b = s["batch"]
+    hr = torch.rand((b, s["size"], s["size"], 3), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    out = {}
+    for iso in (True, False):
+        label = "isotropic" if iso else "anisotropic"
+
+        def call(seed=1):
+            return degrade.srmd_preprocess(
+                torch.Generator("cuda").manual_seed(seed), hr, s["scale"],
+                s["kernel"], 4.0, s["noise"], isotropic=iso)
+
+        lr, kernels = call()
+        replay = torch.Generator("cuda").manual_seed(1)
+        u = [torch.rand((b,), generator=replay, device="cuda").cpu()
+             for _ in range(1 if iso else 3)]
+        sigma_x = 0.2 + 3.8 * u[0]
+        if iso:
+            sigma_y, theta = sigma_x, torch.zeros_like(sigma_x)
+        else:
+            sigma_y, theta = 0.2 + 3.8 * u[1], math.pi * u[2]
+        k_ref = degrade.gaussian_kernels_from(sigma_x, sigma_y, theta,
+                                              s["kernel"])
+        lr_size = s["size"] // s["scale"]
+        noise = torch.randn((b, lr_size, lr_size, 3), generator=replay,
+                            device="cuda")
+        k_err = float((kernels.cpu() - k_ref).abs().max())
+        if not k_err <= SRMD_KERNEL_TOL:
+            fail(f"srmd {label}: card kernels differ from the CPU's by "
+                 f"{k_err:.3e} > {SRMD_KERNEL_TOL:.0e}")
+        ref = degrade.srmd_preprocess_from(hr.cpu(), k_ref, s["scale"],
+                                           noise.cpu(), s["noise"])
+        err = float((lr.cpu() - ref).abs().max())
+        for _ in range(3):
+            call()
+        ms = _event_ms(lambda: [call() for _ in range(20)], 20)
+        out[label] = {"max_abs_err": err, "kernel_max_abs_err": k_err,
+                      "ms": ms, "lr_shape": list(lr.shape)}
+        print(f"srmd_preprocess {label} {b} x {s['size']}^2 x3, "
+              f"{s['kernel']}^2 kernels, x{s['scale']}, noise "
+              f"{s['noise']}: card vs CPU of the same draws, kernels "
+              f"max|d| {k_err:.3e} <= {SRMD_KERNEL_TOL:.0e}, LR max|d| "
+              f"{err:.3e} <= {SRMD_TOL:.0e}; {ms:.3f} ms a call [{smi}]")
+        if not (err <= SRMD_TOL and lr.shape == (b, lr_size, lr_size, 3)):
+            fail(f"srmd {label}: the card disagrees with the CPU")
+    return out
+
+
+def _feed_train(files: list, smi: str) -> tuple:
+    """(b) each dataset variant at crop DATA_CROP, x4, through the
+    ``DataLoader`` at DATA_BATCH with ``augment_rng``: its host images/s
+    over DATA_FEED_BATCHES batches, then DATA_STEPS float32 unfused
+    flagship steps on its first batches, with finite losses and exactly the
+    step's launches (:func:`step_launches`)."""
+    from sradsgan_tpu_torch.data import datasets as ds
+
+    scale = DATA_SCALE
+    variants = {
+        "folder_augment": ds.FolderDataset(files, scale, DATA_CROP,
+                                           augment=True),
+        "augmented_crop": ds.AugmentedCropDataset(files, scale, DATA_CROP),
+        "noisy_gaussian": ds.NoisyDataset(files, scale, DATA_CROP,
+                                          noise="gaussian"),
+        "noisy_sp": ds.NoisyDataset(files, scale, DATA_CROP, noise="sp"),
+        "noisy_poisson": ds.NoisyDataset(files, scale, DATA_CROP,
+                                         noise="poisson"),
+        "blur": ds.BlurDegradedDataset(files, scale, DATA_CROP),
+    }
+    trainer = make_trainer("f32")
+    per_step = step_launches(trainer)
+    want = {k: DATA_STEPS * v for k, v in per_step.items()}
+    out, paths = {}, {}
+    for name, dataset in variants.items():
+        loader = DataLoader(dataset, DATA_BATCH, shuffle=True, seed=0,
+                            augment_rng=True)
+        it = iter(loader)
+        t0 = time.perf_counter()
+        batches = [next(it) for _ in range(DATA_FEED_BATCHES)]
+        host_s = time.perf_counter() - t0
+        it.close()
+        lr_size = DATA_CROP // scale
+        if (batches[0]["lr"].shape != (DATA_BATCH, lr_size, lr_size, 3)
+                or batches[0]["hr"].shape != (DATA_BATCH, DATA_CROP,
+                                              DATA_CROP, 3)):
+            fail(f"{name}: batch shapes {batches[0]['lr'].shape}, "
+                 f"{batches[0]['hr'].shape}")
+        reset_launches()
+        losses = []
+        for batch in batches[:DATA_STEPS]:
+            metrics = trainer.train_step({"lr": batch["lr"],
+                                          "hr": batch["hr"]})
+            losses.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        launches = read_launches()
+        paths[f"train_{name}"] = launches
+        ips = DATA_FEED_BATCHES * DATA_BATCH / host_s
+        out[name] = {"host_images_per_s": ips, "losses": losses}
+        print(f"{name}: {ips:.1f} host images/s (loader, {DATA_CROP}^2 x"
+              f"{scale}, batch {DATA_BATCH}); {DATA_STEPS} f32 flagship "
+              f"steps, loss_G {[round(x['loss_G'], 5) for x in losses]}, "
+              f"launches {launches} [{smi}]")
+        if launches != want:
+            fail(f"{name}: {DATA_STEPS} steps launched {launches}, not "
+                 f"{want}")
+        if not all(np.isfinite(list(x.values())).all() for x in losses):
+            fail(f"{name}: losses are not finite: {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out, paths
+
+
+def _feed_diffusion(src: str, work: str, smi: str) -> dict:
+    """(c) GDP's layouts: ``prepare_triplets`` of the tree at 216/54 feeds
+    ``TripletFolderDataset(hflip=True)``, and ``iter_triplet_records`` of
+    its first class folder (a generator on one thread: 20 images) a
+    dict-backed env that feeds ``LMDBTripletDataset(hflip=True)``; each
+    DATA_STEPS float32 ``DiffusionTrainer`` steps at batch GDP_BATCH of
+    216^2 at the shipped width, finite, with no kernel launched."""
+    from sradsgan_tpu_torch.data import datasets as ds
+    from sradsgan_tpu_torch.diffusion.config import (
+        load_gdp_config, trainer_kwargs_from_config)
+    from sradsgan_tpu_torch.diffusion.trainer import DiffusionTrainer
+    from sradsgan_tpu_torch.tools.prepare_data import (iter_triplet_records,
+                                                       prepare_triplets)
+
+    lr_size = DATA_CROP // DATA_SCALE
+    trip = os.path.join(work, "triplets")
+    t0 = time.perf_counter()
+    n = prepare_triplets(src, trip, DATA_CROP, lr_size)
+    prep_s = time.perf_counter() - t0
+    first = os.path.join(src, sorted(os.listdir(src))[0])
+    t0 = time.perf_counter()
+    store = dict(iter_triplet_records(first, DATA_CROP, lr_size))
+    rec_s = time.perf_counter() - t0
+    n_rec = int(store[b"length"])
+    out = {"prepare_triplets_images_per_s": n / prep_s,
+           "iter_triplet_records_images_per_s": n_rec / rec_s}
+    print(f"prepare_triplets: {n} images at {DATA_CROP}/{lr_size} in "
+          f"{prep_s:.2f} s = {n / prep_s:.1f} images/s; iter_triplet_records"
+          f" {n_rec} images, {n_rec / rec_s:.1f} images/s [{smi}]")
+    kwargs = trainer_kwargs_from_config(load_gdp_config(DIFFUSION_CONFIG))
+    layouts = {"triplet_folder": ds.TripletFolderDataset(
+                   trip, lr_size, DATA_CROP, hflip=True),
+               "lmdb": ds.LMDBTripletDataset(DictEnv(store), lr_size,
+                                             DATA_CROP, hflip=True)}
+    data_cfg = DataConfig(synthetic=True, crop_size=DATA_CROP,
+                          batch_size=GDP_BATCH)
+    for name, dataset in layouts.items():
+        with tempfile.TemporaryDirectory() as save_dir:
+            trainer = DiffusionTrainer(
+                data_cfg, kwargs["scale"], save_dir=save_dir,
+                unet_kwargs=kwargs["unet_kwargs"], bf16=False,
+                device="cuda")
+        gen = torch.Generator("cuda").manual_seed(1)
+        loader = iter(DataLoader(dataset, GDP_BATCH, shuffle=True, seed=0,
+                                 augment_rng=True))
+        reset_launches()
+        losses = []
+        for _ in range(DATA_STEPS):
+            batch = next(loader)
+            losses.append(float(trainer.train_step(
+                {"HR": 2.0 * batch["hr"] - 1.0, "SR": 2.0 * batch["bc"] - 1.0},
+                gen)))
+        loader.close()
+        launches = read_launches()
+        out[name] = {"losses": losses, "launches": launches}
+        print(f"diffusion from {name}: {DATA_STEPS} f32 steps at batch "
+              f"{GDP_BATCH} x {DATA_CROP}^2, losses "
+              f"{[round(x, 5) for x in losses]}, launches {launches} "
+              f"[{smi}]")
+        if any(launches.values()) or not np.isfinite(losses).all():
+            fail(f"diffusion from {name}: launches {launches}, losses "
+                 f"{losses}")
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _scene_head_times(clf, x: np.ndarray, y: np.ndarray, num_classes: int,
+                      smi: str, steps: int = 50) -> dict:
+    """Where the head's ``steps`` full-batch Adam steps spend their time:
+    the host's draw of the initial head (``init_head``), then ``fit_head``
+    from that head three times: cold (its first call; it also copies the
+    head to the card), warm, and warm under ``torch.profiler`` for the
+    device's busy ms (the sum of its kernel times, one stream).  FLOPs a
+    step: the forward and dW of both layers, and dH of the second
+    (the features need no gradient): 4 n dim 256 + 6 n 256 K."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, dim = x.shape
+    flop = steps * (4 * n * dim * 256 + 6 * n * 256 * num_classes)
+    t0 = time.perf_counter()
+    start = clf.init_head(dim, num_classes)
+    init_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = clf.fit_head(x, y, num_classes, steps, head=start)
+        walls.append((time.perf_counter() - t0) * 1e3)  # reads the loss
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        clf.fit_head(x, y, num_classes, steps, head=start)
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    out = {"head_ms": init_ms + walls[0], "head_init_ms": init_ms,
+           "head_cold_ms": walls[0], "head_warm_ms": walls[1],
+           "head_busy_ms": busy_ms, "head_gflop": flop / 1e9,
+           "head_tflops_busy": flop / busy_ms / 1e9 if busy_ms else None,
+           "train_loss": loss}
+    print(f"scene head {steps} Adam steps on {n} x {dim} features, "
+          f"{flop / 1e9:.1f} GFLOP: host init {init_ms:.1f} ms, cold "
+          f"{walls[0]:.1f} ms, warm "
+          f"{walls[1]:.1f} ms wall, device busy {busy_ms:.1f} ms "
+          f"({flop / walls[1] / 1e9:.2f} TFLOP/s of the warm wall, "
+          f"{out['head_tflops_busy'] or 0:.2f} of the busy time; float32 "
+          f"peak 67) [{smi}]")
+    return out
+
+
+def _scene(root: str, files: list, work: str, smi: str) -> dict:
+    """(d) ``SceneClassifier(image_size=216)`` on the card: feature
+    images/s over the tree, the head's 50 Adam steps in ms, its accuracy
+    over the tree by ``evaluate_folder``; SCENE_CHECK_IMAGES images'
+    features against the CPU's (the same seeded trunk)."""
+    from sradsgan_tpu_torch.tools.scene_classification import (
+        SceneClassifier, split_dataset)
+
+    clf = SceneClassifier(image_size=DATA_CROP, device="cuda")
+    clf.features(files[:clf.feature_batch])  # warm-up
+    t0 = time.perf_counter()
+    feats = clf.features(files)
+    feat_s = time.perf_counter() - t0
+    ref = SceneClassifier(image_size=DATA_CROP, device="cpu").features(
+        files[:SCENE_CHECK_IMAGES])
+    err = float(np.abs(feats[:SCENE_CHECK_IMAGES] - ref).max())
+    bound = SCENE_TOL * float(np.abs(ref).max())
+    splits, classes = split_dataset(root)
+    row = {f: i for i, f in enumerate(files)}
+    x = feats[[row[f] for f, _ in splits["train"]]]
+    y = np.array([label for _, label in splits["train"]])
+    head = _scene_head_times(clf, x, y, len(classes), smi)
+    result = clf.evaluate_folder(root, os.path.join(work, "confusion.png"))
+    out = {"features": list(feats.shape), "pretrained": clf.pretrained,
+           "feature_images_per_s": len(files) / feat_s, **head,
+           "accuracy": result["accuracy"], "max_abs_err": err,
+           "bound": bound}
+    loss = head["train_loss"]
+    trunk = "pretrained" if clf.pretrained else "seeded"
+    print(f"scene classification ({trunk} VGG16 trunk, {DATA_CROP}^2 -> "
+          f"{feats.shape[1]} "
+          f"features): {len(files) / feat_s:.1f} feature images/s, head 50 "
+          f"Adam steps {head['head_ms']:.1f} ms (loss {loss:.4f}), accuracy "
+          f"over the tree {result['accuracy']:.4f}; {SCENE_CHECK_IMAGES} "
+          f"images' features card vs CPU max|d| {err:.3e} <= {bound:.3e} "
+          f"[{smi}]")
+    if feats.shape != (len(files), 6 * 6 * 512) or not err <= bound:
+        fail("scene classification: features disagree with the CPU's")
+    if (np.sum(result["confusion"]) != len(files)
+            or not np.isfinite(loss)):
+        fail(f"scene classification: {result}, loss {loss}")
+    return out
+
+
+def _dry_run(smi: str) -> tuple:
+    """(e) ``entry()``'s forward on the card (both gains 0.5) against its
+    CPU twin on a random 54^2 image, launches exact; then
+    ``dryrun_multichip`` over every card's NCCL rank."""
+    from sradsgan_tpu_torch.tools.dryrun import dryrun_multichip, entry
+
+    forward, (model, zeros) = entry()
+    _, (cpu_model, _) = entry(device="cpu")
+    for m in (model, cpu_model):
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if name.endswith(("ca.gamma", "sa.gamma")):
+                    p.fill_(0.5)
+    x = torch.from_numpy(np.random.default_rng(4).random(
+        (1, 3, 54, 54), dtype=np.float32))
+    reset_launches()
+    got = forward(model, x.cuda())
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ref = forward(cpu_model, x)
+    err = float((got.cpu() - ref).abs().max())
+    bound = SLICE_TOL * float(ref.abs().max())
+    if launches != forward_launches(model) or zeros.shape != (1, 3, 54, 54):
+        fail(f"entry: launches {launches}, not {forward_launches(model)}")
+    print(f"entry() forward 1 x 54^2 -> {tuple(got.shape)}: card vs CPU "
+          f"max|d| {err:.3e} <= {bound:.3e}; launches {launches} [{smi}]")
+    if not err <= bound:
+        fail("entry: the card's forward disagrees with the CPU's")
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(cards)
+    seconds = time.perf_counter() - t0
+    print(f"dryrun_multichip({cards}) over NCCL: {seconds:.1f} s [{smi}]")
+    return ({"entry": {"max_abs_err": err, "bound": bound},
+             "dryrun": {"cards": cards, "seconds": seconds, **dry}},
+            launches)
+
+
+def phase_data_and_tools(smi: str) -> tuple:
+    """The data variants and the offline tools on the card, at full size:
+    (a) :func:`_srmd_check`; on a UCMerced-shaped tree
+    (:func:`make_class_tree`), (b) :func:`_feed_train`, (c)
+    :func:`_feed_diffusion`, (d) :func:`_scene`; (e) :func:`_dry_run`.
+    Returns the report and the launches of each path it drove."""
+    t_start = time.perf_counter()
+    out = {"card": smi, "srmd": _srmd_check(smi)}
+    with tempfile.TemporaryDirectory() as work:
+        root = os.path.join(work, "ucmerced")
+        t0 = time.perf_counter()
+        files = make_class_tree(root)
+        out["tree_s"] = time.perf_counter() - t0
+        out["train_feeds"], paths = _feed_train(files, smi)
+        out["diffusion_feeds"] = _feed_diffusion(root, work, smi)
+        out["scene"] = _scene(root, files, work, smi)
+    out["dry_run"], paths["entry"] = _dry_run(smi)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"data and tools phase: {out['seconds']:.1f} s")
+    return out, paths
+
+
 def main() -> int:
     # Full float32 in the plain versions too: cuDNN would run the float32
     # convs in TF32 (about three decimal digits) by default.
@@ -3463,6 +3873,7 @@ def main() -> int:
     diffusion = phase_diffusion(smi)
     data_parallel, nccl1, gloo2, tiled_runs = phase_data_parallel(smi)
     tiled, tiled_launches = phase_tiled_and_weights(smi, tiled_runs)
+    data_tools, data_paths = phase_data_and_tools(smi)
     paths = {"serving": serving["launches"],
              "serving_fused": serving["fused_launches"],
              **{f"train_{k[len('launches_'):]}": v
@@ -3474,7 +3885,8 @@ def main() -> int:
              "train_ddp_nccl1": nccl1, "train_ddp_gloo2": gloo2,
              "tiled_one_process": tiled_launches,
              **{f"tiled_{k}_rank0": v["launches_rank0"]
-                for k, v in tiled.items() if k.startswith(("gloo", "nccl"))}}
+                for k, v in tiled.items() if k.startswith(("gloo", "nccl"))},
+             **data_paths}
     never = [name for name in KERNELS
              if not any(path[name] for path in paths.values())]
     idle = [name for name in KERNELS if not cli_train["launches"][name]]
@@ -3499,7 +3911,8 @@ def main() -> int:
                       "attention_grammar": grammar, "hat": hat, "export": exported,
                       "diffusion": diffusion,
                       "data_parallel": data_parallel,
-                      "tiled_and_weights": tiled, "strips": plans,
+                      "tiled_and_weights": tiled,
+                      "data_and_tools": data_tools, "strips": plans,
                       "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

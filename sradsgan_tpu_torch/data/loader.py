@@ -33,7 +33,11 @@ class DataLoader:
     """Epoch iterator over a dataset yielding collated NHWC numpy batches.
 
     Each pass over the loader shuffles with
-    ``np.random.default_rng(seed + passes so far)``.
+    ``np.random.default_rng(seed + passes so far)``.  With ``augment_rng``
+    image ``idx`` is loaded with ``np.random.default_rng(seed * 100003 +
+    idx)`` as the generator of its random augmentation (else with none), as
+    the JAX loader does: the draw depends on the index and not on the
+    pass, so an image gets the same augmentation every epoch.
 
     ``shard_index``/``shard_count`` split the data over the ranks of a data
     mesh as the JAX loader does: every rank shuffles with the same seed and
@@ -49,13 +53,15 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 8,
-                 seed: int = 0, shard_index: int = 0, shard_count: int = 1):
+                 seed: int = 0, augment_rng: bool = False,
+                 shard_index: int = 0, shard_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(num_workers, 1)
         self.seed = seed
+        self.augment_rng = augment_rng
         self.shard_index = shard_index
         self.shard_count = max(shard_count, 1)
         self._epoch = 0
@@ -83,7 +89,9 @@ class DataLoader:
             return
 
         def load_one(idx):
-            return self.dataset.load(int(idx))
+            rng = (np.random.default_rng(self.seed * 100003 + int(idx))
+                   if self.augment_rng else None)
+            return self.dataset.load(int(idx), rng)
 
         with ThreadPoolExecutor(self.num_workers) as pool:
             # Pipeline: batch i + 1 decodes while batch i is consumed.

@@ -9,6 +9,11 @@ name at each call, a CPU implementation that is the plain version, and a
 fake one that gives the outputs' shapes and dtypes, so that ``torch.export``
 records the op as one node.  The ops have no autograd of their own: the
 op modules' ``autograd.Function``s call them and own the gradients.
+
+The package also exports the host-side and library-call ops that the JAX
+package's ``ops`` exports or holds: the PIL-coefficient resize, pixel
+shuffle, the SRMD-style degradation (``degrade``) and the estimated-kernel
+post-processing (``kernel_ops``).
 """
 
 import importlib
@@ -47,3 +52,44 @@ def register_all() -> None:
     loader of an exported program needs before ``torch.export.load``)."""
     for name in OP_MODULES:
         importlib.import_module(f"{__name__}.{name}")
+
+
+from sradsgan_tpu_torch.ops.degrade import (  # noqa: E402
+    add_gaussian_noise,
+    add_poisson_noise,
+    add_salt_pepper_noise,
+    batch_blur,
+    gaussian_kernels,
+    srmd_preprocess,
+)
+from sradsgan_tpu_torch.ops.kernel_ops import (  # noqa: E402
+    centralize_kernel,
+    post_process_kernel,
+    zeroize_negligible,
+)
+from sradsgan_tpu_torch.ops.pixelshuffle import pixel_shuffle  # noqa: E402
+from sradsgan_tpu_torch.ops.resize import (  # noqa: E402
+    bicubic_resize,
+    degrade_pair,
+    resize_matrix,
+)
+
+__all__ = [
+    "NAMESPACE",
+    "define",
+    "plain_dtype",
+    "register_all",
+    "bicubic_resize",
+    "degrade_pair",
+    "resize_matrix",
+    "pixel_shuffle",
+    "gaussian_kernels",
+    "batch_blur",
+    "add_gaussian_noise",
+    "add_poisson_noise",
+    "add_salt_pepper_noise",
+    "srmd_preprocess",
+    "zeroize_negligible",
+    "centralize_kernel",
+    "post_process_kernel",
+]

@@ -23,10 +23,10 @@ of hanging it) and returns each rank's results.  The spec is JSON:
   running statistics, and the final state dicts; with ``turns`` and
   ``timed_steps``, the step is then timed (:func:`_turn_ms`);
 - ``"diffusion"``: :class:`~sradsgan_tpu_torch.diffusion.trainer.
-  DiffusionTrainer` (``scale``, ``crop``, ``unet_kwargs``, ``weights``: a
-  UNet state dict), ``steps`` steps on :func:`diffusion_batches`, ``t`` and
-  the noise drawn from a generator on the device seeded ``draw_seed``,
-  timed likewise where the scenario asks;
+  DiffusionTrainer` (``scale``, ``crop``, ``unet_kwargs``, ``timesteps``
+  (default 1000), ``weights``: a UNet state dict), ``steps`` steps on
+  :func:`diffusion_batches`, ``t`` and the noise drawn from a generator on
+  the device seeded ``draw_seed``, timed likewise where the scenario asks;
 - ``"epoch"``: ``Trainer.train()`` for ``config``'s epochs; it returns the
   steps taken, the last sweep's metrics and the final state dicts;
 - ``"validate"``: ``Trainer.validate(max_batches)``;
@@ -208,8 +208,9 @@ def _diffusion(sc: Dict[str, Any], device: str) -> Dict[str, Any]:
     with tempfile.TemporaryDirectory() as save_dir:
         trainer = DiffusionTrainer(
             DataConfig(crop_size=sc["crop"], batch_size=sc["batch"]),
-            sc["scale"], save_dir=save_dir, unet_kwargs=sc["unet_kwargs"],
-            bf16=False, device=device)
+            sc["scale"], save_dir=save_dir,
+            n_timestep=sc.get("timesteps", 1000),
+            unet_kwargs=sc["unet_kwargs"], bf16=False, device=device)
     if sc.get("weights"):
         trainer.unet.load_state_dict(torch.load(
             sc["weights"], map_location=trainer.device, weights_only=True))

@@ -121,8 +121,8 @@ class _First:
     def __len__(self) -> int:
         return self.n
 
-    def load(self, index: int):
-        return self.dataset.load(index)
+    def load(self, index: int, rng=None):
+        return self.dataset.load(index, rng)
 
 
 def partial_restore(model: nn.Module,

@@ -79,8 +79,11 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
     HAT read back by ``serving.load_exported``, and ``diffusion-train``
     with the diffusion modules, the data mesh and the ranks' worker of the
     data-parallel checks, the reference and torchvision weight readers, the
-    report and wandb utilities, and the block library (spectral norm,
-    ESRGAN nets, extractors, AA-conv, the extra losses)."""
+    report and wandb utilities, the block library (spectral norm,
+    ESRGAN nets, extractors, AA-conv, the extra losses), the degradation
+    and kernel ops, and the data variants and offline tools (their PIL,
+    scipy, matplotlib and lmdb imports are inside the calls: importing the
+    port imports no scipy)."""
     tiny = json.dumps({"base_filters": 16, "n_groups": 1, "n_blocks": 1})
     flags = ["--device", "cpu", "--data", "synthetic", "--scale", "2",
              "--crop-size", "32", "--lpips", "--save-dir", str(tmp_path),
@@ -147,6 +150,15 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
             "import sradsgan_tpu_torch.nn.extractors\n"
             "import sradsgan_tpu_torch.nn.augmented_conv\n"
             "import sradsgan_tpu_torch.losses.extra\n"
+            "import sradsgan_tpu_torch.ops.degrade\n"
+            "import sradsgan_tpu_torch.ops.kernel_ops\n"
+            "import sradsgan_tpu_torch.tools.prepare_data\n"
+            "import sradsgan_tpu_torch.tools.scene_classification\n"
+            "import sradsgan_tpu_torch.tools.dryrun\n"
+            "from sradsgan_tpu_torch.data.datasets import (\n"
+            "    AugmentedCropDataset, BlurDegradedDataset,\n"
+            "    LMDBTripletDataset, NoisyDataset, TripletFolderDataset)\n"
+            "assert 'scipy' not in sys.modules and 'lmdb' not in sys.modules\n"
             f"for argv in {commands!r}:\n"
             "    assert sradsgan_tpu_torch.cli.main(argv) == 0\n"
             "import numpy as np\n"
@@ -157,14 +169,14 @@ def test_port_imports_no_jax_flax_or_pil(tmp_path):
             "SyntheticDataset(2, 4, 16).load(0)\n"
             "print(json.dumps({m: m in sys.modules\n"
             "                  for m in ('jax', 'flax', 'PIL',\n"
-            "                            'matplotlib',\n"
+            "                            'matplotlib', 'lmdb',\n"
             "                            'sradsgan_tpu')}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
         "jax": False, "flax": False, "PIL": False, "matplotlib": False,
-        "sradsgan_tpu": False}
+        "lmdb": False, "sradsgan_tpu": False}
 
 
 def _kernel_args():
