@@ -31,10 +31,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from sradsgan_tpu_torch.evaluation.tiled import (forward_numpy,
+from sradsgan_tpu_torch.evaluation.tiled import (_forward,
                                                  tiled_super_resolve)
 from sradsgan_tpu_torch.nn.attention import SpatialGate
 from sradsgan_tpu_torch.parallel.mesh import Mesh
+from sradsgan_tpu_torch.utils.spans import span
 
 DTYPES = (torch.float32, torch.bfloat16)
 # What a bf16 copy keeps in float32, as the JAX package keeps its params
@@ -108,24 +109,33 @@ class Predictor:
         Inputs that fit a bucket are padded up to it (reflect) and cropped
         back; larger inputs go through halo-tiled inference.
         """
-        squeeze = lr01.ndim == 3
-        if squeeze:
-            lr01 = lr01[None]
-        b, h, w, _ = lr01.shape
-        bucket = next((s for s in self.buckets if s >= max(h, w)), None)
-        if bucket is None:
-            out = np.stack([
-                tiled_super_resolve(self.model, lr01[i], self.scale,
-                                    self.tile, self.halo,
-                                    device=self.device, dtype=self.dtype,
-                                    mesh=self.mesh)
-                for i in range(b)])
-        else:
-            padded = np.pad(lr01, ((0, 0), (0, bucket - h), (0, bucket - w),
-                                   (0, 0)), mode="reflect")
-            out = forward_numpy(self.model, padded, self.device, self.dtype)
-            out = out[:, :h * self.scale, :w * self.scale]
-        return out[0] if squeeze else out
+        with span("serve.request"):
+            squeeze = lr01.ndim == 3
+            if squeeze:
+                lr01 = lr01[None]
+            b, h, w, _ = lr01.shape
+            bucket = next((s for s in self.buckets if s >= max(h, w)), None)
+            if bucket is None:
+                out = np.stack([
+                    tiled_super_resolve(self.model, lr01[i], self.scale,
+                                        self.tile, self.halo,
+                                        device=self.device, dtype=self.dtype,
+                                        mesh=self.mesh)
+                    for i in range(b)])
+            else:
+                with span("serve.pad"):
+                    padded = np.pad(lr01, ((0, 0), (0, bucket - h),
+                                           (0, bucket - w), (0, 0)),
+                                    mode="reflect")
+                with torch.inference_mode():
+                    with span("serve.forward"):
+                        sr = _forward(self.model, padded, self.device,
+                                      self.dtype)
+                    with span("serve.fetch"):
+                        out = sr.cpu().numpy()
+                with span("serve.crop"):
+                    out = out[:, :h * self.scale, :w * self.scale]
+            return out[0] if squeeze else out
 
 
 class _NHWC(nn.Module):

@@ -104,6 +104,7 @@ from sradsgan_tpu_torch.parallel.mesh import (all_reduce_grads_,
 from sradsgan_tpu_torch.train.state import get_lr, make_optimizer, set_lr
 from sradsgan_tpu_torch.utils.logging import Logger
 from sradsgan_tpu_torch.utils.plotting import plot_curves
+from sradsgan_tpu_torch.utils.spans import span
 
 Batch = Mapping[str, Any]
 # The sweep's per-image metrics (:meth:`Trainer._eval_step`); with
@@ -247,15 +248,23 @@ class Trainer:
             return self.discriminator(x.to(plain_dtype(x)))
 
     def _update(self, opt: torch.optim.Optimizer, model: nn.Module,
-                loss: torch.Tensor) -> None:
-        """Gradients of ``loss`` for ``model``'s parameters alone, averaged
-        over the ranks and left in their ``.grad``, then one optimizer
-        step."""
+                loss: torch.Tensor, backward: str, optim: str,
+                clip: Optional[float] = None) -> None:
+        """Gradients of ``loss`` for ``model``'s parameters alone (the span
+        ``backward``), averaged over the ranks and left in their ``.grad``,
+        then one optimizer step and, with ``clip``, every parameter clipped
+        to ``+-clip`` (the span ``optim``)."""
         params = [p for p in model.parameters() if p.requires_grad]
-        for p, g in zip(params, torch.autograd.grad(loss, params)):
-            p.grad = g
-        all_reduce_grads_(params, self.mesh)
-        opt.step()
+        with span(backward):
+            for p, g in zip(params, torch.autograd.grad(loss, params)):
+                p.grad = g
+        with span(optim):
+            all_reduce_grads_(params, self.mesh)
+            opt.step()
+            if clip is not None:
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.clamp_(-clip, clip)
 
     # ------------------------------------------------------------------
     def train_step(self, batch: Batch,
@@ -273,31 +282,34 @@ class Trainer:
                     generator: Optional[torch.Generator] = None
                     ) -> Dict[str, torch.Tensor]:
         """:meth:`train_step` on this rank's rows of the global batch."""
-        lr_img = self._to_device(batch["lr"])
-        hr_img = self._to_device(batch["hr"])
-        metrics: Dict[str, torch.Tensor] = {}
-        sr = self._g_step(lr_img, hr_img, metrics)
-        if self.discriminator is not None:
-            self._d_step(hr_img, sr.detach(),
-                         generator or self.alpha_generator, metrics)
-        self.step += 1
-        means = all_reduce_sums(metrics.values(), self.mesh) / self.mesh.world
-        return {k: m.to(v.dtype)
-                for (k, v), m in zip(metrics.items(), means.unbind())}
+        with span("train.step"):
+            lr_img = self._to_device(batch["lr"])
+            hr_img = self._to_device(batch["hr"])
+            metrics: Dict[str, torch.Tensor] = {}
+            sr = self._g_step(lr_img, hr_img, metrics)
+            if self.discriminator is not None:
+                self._d_step(hr_img, sr.detach(),
+                             generator or self.alpha_generator, metrics)
+            self.step += 1
+            means = (all_reduce_sums(metrics.values(), self.mesh)
+                     / self.mesh.world)
+            return {k: m.to(v.dtype)
+                    for (k, v), m in zip(metrics.items(), means.unbind())}
 
     def _g_step(self, lr_img: torch.Tensor, hr_img: torch.Tensor,
                 metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
         gan = self.cfg.gan
-        with self._autocast(self.g_bf16):
+        with span("train.g_forward"), self._autocast(self.g_bf16):
             sr = self.generator(lr_img)
             p_loss = pixel_loss(sr, hr_img, self.spec.pixel_loss)
             loss = gan.weight_pixel * p_loss
             metrics["pixel"] = p_loss
             if self.vgg is not None:
-                feats = self.vgg(torch.cat([sr, hr_img]))
-                feat_sr, feat_hr = feats.chunk(2)
-                c_loss = pixel_loss(feat_sr, feat_hr.detach(),
-                                    self.spec.pixel_loss)
+                with span("train.vgg"):
+                    feats = self.vgg(torch.cat([sr, hr_img]))
+                    feat_sr, feat_hr = feats.chunk(2)
+                    c_loss = pixel_loss(feat_sr, feat_hr.detach(),
+                                        self.spec.pixel_loss)
                 loss = loss + gan.weight_content * c_loss
                 metrics["content"] = c_loss
             if self.discriminator is not None:
@@ -308,7 +320,8 @@ class Trainer:
                     relativistic=gan.relativistic)
                 loss = loss + gan.weight_gan * adv
                 metrics["adv_g"] = adv
-        self._update(self.g_opt, self.generator, loss)
+        self._update(self.g_opt, self.generator, loss, "train.g_backward",
+                     "train.g_optim")
         metrics["loss_G"] = loss
         return sr
 
@@ -316,25 +329,28 @@ class Trainer:
                 generator: torch.Generator,
                 metrics: Dict[str, torch.Tensor]) -> None:
         gan = self.cfg.gan
-        loss = gan_losses.adversarial_loss_d(
-            self._d(hr_img), self._d(sr), gan.gan_type,
-            relativistic=gan.relativistic)
-        objective = loss
-        if gan.gan_type == "wgan-gp":
-            mesh = self.mesh  # the global batch's draws, this rank's rows
-            alpha = gan_losses.interpolation_weights(
-                hr_img.shape[0] * mesh.world, generator,
-                self.device)[mesh.rank::mesh.world]
-            gp = gan_losses.gradient_penalty(self._d, hr_img, sr, alpha)
-            gp_weight = gan.lambda_gp + (1.0 if gan.gp_inner_backward
-                                         else 0.0)
-            objective = loss + gp_weight * gp
-            loss = loss + gan.lambda_gp * gp
-        self._update(self.d_opt, self.discriminator, objective)
-        if gan.gan_type == "wgan-gp":  # weight clip, every D parameter
-            with torch.no_grad():
-                for p in self.discriminator.parameters():
-                    p.clamp_(-gan.clip_value, gan.clip_value)
+        wgan_gp = gan.gan_type == "wgan-gp"
+        with span("train.d_forward"):
+            loss = gan_losses.adversarial_loss_d(
+                self._d(hr_img), self._d(sr), gan.gan_type,
+                relativistic=gan.relativistic)
+            objective = loss
+            if wgan_gp:
+                mesh = self.mesh  # the global batch's draws, this rank's rows
+                alpha = gan_losses.interpolation_weights(
+                    hr_img.shape[0] * mesh.world, generator,
+                    self.device)[mesh.rank::mesh.world]
+                with span("train.penalty"):
+                    gp = gan_losses.gradient_penalty(self._d, hr_img, sr,
+                                                     alpha)
+                gp_weight = gan.lambda_gp + (1.0 if gan.gp_inner_backward
+                                             else 0.0)
+                objective = loss + gp_weight * gp
+                loss = loss + gan.lambda_gp * gp
+        # WGAN-GP clips every D parameter after the step
+        self._update(self.d_opt, self.discriminator, objective,
+                     "train.d_backward", "train.d_optim",
+                     clip=gan.clip_value if wgan_gp else None)
         metrics["loss_D"] = loss
 
     def run_steps(self, batches: Iterable[Batch],

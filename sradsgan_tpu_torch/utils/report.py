@@ -69,7 +69,16 @@ def print_network_to_file(model: nn.Module, example_input: torch.Tensor,
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     """A ``torch.profiler`` trace of the block, the CPU and, where there is
     one, the CUDA device, written on exit to ``log_dir`` as a Chrome trace
-    ``trace_<time>_<pid>.json`` (chrome://tracing or Perfetto opens it)."""
+    ``trace_<time>_<pid>.json`` (chrome://tracing or Perfetto opens it).
+
+    The program's spans (``utils/spans.py``) enter the trace as user
+    annotations on the device's clock, so that a trace of ``cli train`` or
+    of a ``Predictor`` names each phase over its kernels and idle gaps:
+    ``train.step`` over ``train.g_forward`` (``train.vgg``),
+    ``train.g_backward``, ``train.g_optim``, ``train.d_forward``
+    (``train.penalty``), ``train.d_backward``, ``train.d_optim``; and
+    ``serve.request`` over ``serve.pad``, ``serve.forward``, ``serve.fetch``,
+    ``serve.crop``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -10,6 +10,7 @@ tags and steps to each other.
 """
 
 import glob
+import json
 import os
 import sys
 import types
@@ -28,6 +29,7 @@ from sradsgan_tpu.utils import logging as jax_logging  # noqa: E402
 from sradsgan_tpu.utils import plotting as jax_plotting  # noqa: E402
 from sradsgan_tpu.utils import report as jax_report  # noqa: E402
 from sradsgan_tpu_torch.models import create_generator  # noqa: E402
+from sradsgan_tpu_torch.serving import Predictor  # noqa: E402
 from sradsgan_tpu_torch.tools.from_jax import sradsgan_state_dict  # noqa
 from sradsgan_tpu_torch.utils import logging as port_logging  # noqa: E402
 from sradsgan_tpu_torch.utils import plotting, report  # noqa: E402
@@ -180,8 +182,16 @@ def test_network_report_flops_and_trace(tmp_path):
     assert "=== G again ===" in text
     with report.trace(str(tmp_path / "trace")):
         model(x)
+        Predictor(model, 2, buckets=(6,), device="cpu")(np.ones((5, 6, 3)))
     (trace,) = glob.glob(str(tmp_path / "trace" / "trace_*.json"))
     assert os.path.getsize(trace) > 0
+    # the request's spans are annotations of the trace
+    with open(trace) as f:
+        names = {(e.get("cat"), e.get("name"))
+                 for e in json.load(f)["traceEvents"]}
+    assert {("user_annotation", n) for n in
+            ("serve.request", "serve.pad", "serve.forward", "serve.fetch",
+             "serve.crop")} <= names
 
 
 def test_wandb_shim_is_a_no_op_without_wandb(monkeypatch):
