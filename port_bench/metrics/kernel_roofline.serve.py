@@ -1,11 +1,17 @@
-"""Percent: as ``kernel_roofline.train``, over the forward ops a request
-launches (pool, spatial gate, position attention and, where fused, the RAB
-tail)."""
+"""Percent: as ``kernel_roofline.train``, over the traced requests: each
+request's calls (pool, spatial gate, position attention) at the shape it
+runs at on the device, read off the reference generator's forward
+(``schedule.request``)."""
 
-from port_bench import roofline, trace
+from port_bench import roofline, schedule, trace
 
 
 def read(ctx):
-    calls = trace.op_calls(ctx["trace"], "sradsgan_tpu_torch::")
+    shapes = ctx["measured"].get("traced_shapes")
+    if not shapes:
+        return None
+    config = ctx["cell"].config
     mhz = float(ctx["card"].get("max_sm_mhz") or 1980)
-    return roofline.roofline_share(calls, roofline.FORWARD_OPS, mhz)
+    bound = sum(roofline.schedule_bound_s(schedule.request(config, b, s), mhz)
+                for b, s in shapes)
+    return roofline.share(bound, trace.kernel_s(ctx["trace"]))

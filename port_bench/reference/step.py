@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from port_bench.reference.models import EXACT, Numerics, build, set_numerics
+from port_bench.schedule import recording
 
 
 def l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -118,10 +119,13 @@ class ReferenceStep:
 
 def follow(config: Mapping, weights: Mapping, batches: Sequence,
            alphas: Sequence, device, numerics: Numerics = EXACT,
-           g_grads: Optional[Callable] = None) -> Dict:
+           g_grads: Optional[Callable] = None,
+           schedule: Optional[List] = None) -> Dict:
     """The reference over the checked steps: each step's losses, the first
     step's gradient norms, and the parameters' change norms after the first
-    step and after the last, by network and parameter name."""
+    step and after the last, by network and parameter name.  ``schedule``:
+    a list that receives the first step's calls of the six functions
+    (``port_bench.schedule``)."""
     ref = ReferenceStep(config, weights, device, numerics)
 
     def change():
@@ -130,8 +134,11 @@ def follow(config: Mapping, weights: Mapping, batches: Sequence,
                 for net, ps in ref.params().items()}
     losses, grad_norms, change1 = [], None, None
     for i, ((lr, hr), alpha) in enumerate(zip(batches, alphas)):
-        out = ref.step(lr.to(device), hr.to(device), alpha.to(device),
-                       g_grads)
+        with recording(ref.g, ref.d) as calls:
+            out = ref.step(lr.to(device), hr.to(device), alpha.to(device),
+                           g_grads)
+        if i == 0 and schedule is not None:
+            schedule += calls
         losses.append(out["losses"])
         if i == 0:
             grad_norms = {net: {n: float(g.norm()) for n, g in gs.items()}

@@ -11,12 +11,17 @@ operations over its dtype's rate and its exponentials over theirs.  The
 counts come from the op's input shapes: each input read once, each output
 written once, the operations of the function (not what a kernel does
 again); they are the counts ``chip_smoke.py`` holds the kernels to.
+
+The share a cell reports is the bound of the work its traced segment had
+to do, each unit's calls as ``schedule.py`` reads them off the reference,
+over the device time of the program's own kernels in the segment, found
+by name (``trace.kernel_s``), however the program launched them.
 """
 
 from __future__ import annotations
 
 from math import prod
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
@@ -25,12 +30,11 @@ SMS = 132
 
 OPS = ("avg_max_pool", "spatial_gate", "spatial_gate_bwd",
        "position_attention", "position_attention_bwd", "rab_tail")
-FORWARD_OPS = ("avg_max_pool", "spatial_gate", "position_attention",
-               "rab_tail")
 
 
 def dtype_name(trace_type: str) -> str:
-    """The trace's "Input type" of a tensor as a key of PEAK_FLOPS."""
+    """The trace's "Input type" of a tensor as a key of PEAK_FLOPS (the
+    link through host op calls, which the tests hold the schedule to)."""
     return "bfloat16" if "BFloat16" in trace_type else "float32"
 
 
@@ -67,12 +71,11 @@ def counts(op: str, dims: Sequence[Sequence[int]], es: int) -> Dict:
     raise KeyError(op)
 
 
-def bound_s(op: str, dims, types, exps_per_s: float,
+def bound_s(op: str, dims, dtype: str, exps_per_s: float,
             with_lse: bool = False) -> float:
-    """The least seconds a call could take on the card; ``with_lse``: the
-    forward also writes its log-sum-exp (float32), as the train step's
-    does."""
-    dtype = dtype_name(types[0] if types else "float")
+    """The least seconds a call could take on the card; ``dtype``: its
+    activations' ("float32" or "bfloat16"); ``with_lse``: the forward also
+    writes its log-sum-exp (float32), as the train step's does."""
     es = 2 if dtype == "bfloat16" else 4
     c = counts(op, dims, es)
     if op == "position_attention" and with_lse:
@@ -85,18 +88,33 @@ def exps_rate(max_sm_mhz: float) -> float:
     return EXPS_PER_CLOCK_PER_SM * SMS * max_sm_mhz * 1e6
 
 
-def roofline_share(calls: List[Mapping], ops: Sequence[str],
-                   max_sm_mhz: float) -> Optional[float]:
-    """Percent: the summed bounds of the calls of ``ops`` over the summed
-    device time of the kernels they launched; None where no such call
-    launched a kernel."""
+def schedule_bound_s(entries: Iterable, max_sm_mhz: float) -> float:
+    """The least seconds a unit's calls (``schedule.Entry``) could take."""
+    rate = exps_rate(max_sm_mhz)
+    return sum(bound_s(e.op, e.dims, e.dtype, rate, e.with_lse)
+               for e in entries)
+
+
+def share(bound: float, kernel_s: float) -> Optional[float]:
+    """Percent: the least seconds of the work over the seconds its kernels
+    took; None where no kernel of the program ran."""
+    return 100.0 * bound / kernel_s if kernel_s > 0 else None
+
+
+def roofline_share(calls: List[Mapping], max_sm_mhz: float
+                   ) -> Optional[float]:
+    """Percent, by the link through host op calls (``trace.op_calls``):
+    the summed bounds of the calls over the summed device time of the
+    kernels they launched; None where no call launched a kernel.  A CUDA
+    graph's replay makes no op call, so this reads only eager calls; the
+    tests hold the schedule's reading to it."""
     rate = exps_rate(max_sm_mhz)
     bound = spent = 0.0
     for call in calls:
-        if call["name"] not in ops or not call["kernels"]:
+        if not call["kernels"]:
             continue
         lse = "True" in map(str, call.get("concrete", []))
-        bound += bound_s(call["name"], call["dims"], call["types"], rate,
-                         lse)
+        dtype = dtype_name(call["types"][0] if call["types"] else "float")
+        bound += bound_s(call["name"], call["dims"], dtype, rate, lse)
         spent += call["device_s"]
-    return 100.0 * bound / spent if spent > 0 else None
+    return share(bound, spent)

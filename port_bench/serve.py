@@ -48,12 +48,17 @@ def program_predictor(config, mix, weights, device):
                      device=device, dtype=torch.float32)
 
 
+def device_shape(req, buckets):
+    """(batch, bucket): the shape a request runs on the device at."""
+    k, h, w, _ = req.lr.shape
+    return k, bucket_of(buckets, h, w)
+
+
 def device_shapes(deck, buckets):
     """One request of each (batch, bucket) shape the deck sends."""
     seen = {}
     for req in deck:
-        k, h, w, _ = req.lr.shape
-        seen.setdefault((k, bucket_of(buckets, h, w)), req)
+        seen.setdefault(device_shape(req, buckets), req)
     return list(seen.values())
 
 
@@ -116,7 +121,9 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
                     call(req.lr)
         tr = trace.run_traced(segment, save_dir)
         measured.update(trace=tr, busy_s=trace.busy_s(tr),
-                        traced_lr_pixels=[r.lr_pixels for r in traced_reqs])
+                        traced_lr_pixels=[r.lr_pixels for r in traced_reqs],
+                        traced_shapes=[device_shape(r, mix["buckets"])
+                                       for r in traced_reqs])
     if torch.device(device).type == "cuda":
         measured["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated(
             device))

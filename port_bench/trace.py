@@ -5,19 +5,24 @@ input shapes recorded) inside the span ``bench.traced``; its Chrome trace
 is written to a temporary file, read back and deleted.  Device time is the
 union of the intervals of kernels, copies and sets on every stream (the
 feed's copy stream and NCCL's run beside the compute stream), never their
-sum.
+sum.  The program's own kernels are found in it by name, the names of the
+kernels its library is built from, with or without a host op call around
+their launch: a CUDA graph's replay makes none.
 """
 
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import functools
 import json
 import os
+import re
 import sys
 import tempfile
 from collections import defaultdict
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import (Callable, Dict, FrozenSet, Iterable, List, Optional,
+                    Tuple)
 
 import torch
 
@@ -191,3 +196,60 @@ def op_calls(trace: Trace, prefix: str) -> List[Dict]:
             calls[ext]["kernels"] += 1
     return list(calls.values())
 
+
+COMMENT = re.compile(r"//[^\n]*|/\*.*?\*/", re.S)
+
+
+def global_functions(source: str) -> List[str]:
+    """The names of the ``__global__`` functions a CUDA source defines or
+    declares (comments left out)."""
+    text = COMMENT.sub(" ", source)
+    names = []
+    for m in re.finditer(r"\b__global__\b", text):
+        rest = text[m.end():]
+        # skip __launch_bounds__(...), whose arguments may nest parentheses
+        bounds = rest.find("__launch_bounds__")
+        if 0 <= bounds < rest.find("("):
+            depth, i = 0, rest.index("(", bounds)
+            while True:
+                depth += {"(": 1, ")": -1}.get(rest[i], 0)
+                i += 1
+                if depth == 0:
+                    break
+            rest = rest[i:]
+        names.append(re.match(r"[^(]*?(\w+)\s*\(", rest, re.S).group(1))
+    return names
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_names() -> FrozenSet[str]:
+    """The names of the program's own kernels: every ``__global__``
+    function in the sources its kernel library is built from (all of
+    ``sradsgan_tpu_torch/csrc``, headers too), so a kernel added there is
+    counted with no change here."""
+    from sradsgan_tpu_torch.ops import _build
+
+    return frozenset(name for path in sorted(_build.CSRC_DIR.iterdir())
+                     if path.is_file()
+                     for name in global_functions(path.read_text()))
+
+
+def kernel_function(name: str) -> str:
+    """A kernel event's function name without its scope, template
+    arguments and parameters: ``void (anonymous namespace)::gate_kernel<
+    __nv_bfloat16, 0>(...)`` -> ``gate_kernel``."""
+    head = re.split(r"[<(]", name.replace("(anonymous namespace)::", ""), 1)
+    return head[0].split()[-1].split("::")[-1] if head[0].split() else ""
+
+
+def kernel_s(trace: Trace) -> float:
+    """Summed seconds, inside the window, of the program's own kernels
+    (``kernel_names``), on every stream."""
+    names = kernel_names()
+    total = 0.0
+    for e in trace.device():
+        if e.get("cat") == "kernel" and kernel_function(
+                e.get("name", "")) in names:
+            a, b = interval(e)
+            total += max(0.0, min(b, trace.end) - max(a, trace.start))
+    return total / 1e6

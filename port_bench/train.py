@@ -206,7 +206,11 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
     measured["check_inputs"] = {"weights": weights, "inputs": inputs,
                                 "alpha_seed": alpha_seed,
                                 "program": program}
-    ref = reference(config, measured["check_inputs"], mix["batch"], device)
+    # the work of a step for the kernels' roofline: the calls of the
+    # check's first reference step
+    measured["schedule"] = []
+    ref = reference(config, measured["check_inputs"], mix["batch"], device,
+                    schedule=measured["schedule"])
     measured["readings"] = compare.train_readings(program, ref, config)
     print(f"readings {json.dumps(measured['readings'])}\n"
           f"worst leaves {compare.worst_leaves(program, ref, config)}",
@@ -224,15 +228,18 @@ def reference_alphas(alpha_seed: int, batch: int, steps: int) -> List:
 
 def reference(config, check_inputs: Mapping, batch: int, device,
               numerics: Numerics = EXACT, rows=slice(None),
-              g_grads: Optional[Callable] = None) -> Dict:
+              g_grads: Optional[Callable] = None,
+              schedule: Optional[List] = None) -> Dict:
     """The reference over the checked steps, with the program's inputs;
     ``rows`` of each batch and ``g_grads``, a change to the G's gradients
-    before its update, plant a fault in it."""
+    before its update, plant a fault in it; ``schedule`` receives the first
+    step's calls of the six functions."""
     alphas = reference_alphas(check_inputs["alpha_seed"], batch,
                               len(check_inputs["inputs"]))
     return follow(config, check_inputs["weights"],
                   [(lr[rows], hr[rows]) for lr, hr in check_inputs["inputs"]],
-                  [a[rows] for a in alphas], device, numerics, g_grads)
+                  [a[rows] for a in alphas], device, numerics, g_grads,
+                  schedule)
 
 
 def _sync(device) -> None:
