@@ -1130,7 +1130,7 @@ def _d_sensitivity(batch, size: float, check: dict) -> tuple:
             sign = torch.randint(0, 2, sr.shape,
                                  generator=torch.Generator().manual_seed(5))
             sr = sr + (sign * 2 - 1).to(sr) * size * sr.abs().max()
-        trainer._d_step(hr, sr, torch.Generator().manual_seed(7), {})
+        trainer._d_step(hr, sr, _check_alpha(trainer, hr), {})
         grads.append({n: p.grad.cpu() for n, p in
                       trainer.discriminator.named_parameters()
                       if n not in zero_by_math(trainer.discriminator)})
@@ -1200,8 +1200,16 @@ def _d_step_from(trainer, batch: dict, sr: torch.Tensor):
     """The trainer's D step on ``sr`` (cast to its dtype and device), with
     the check's penalty weights; returns the trainer."""
     hr = trainer._to_device(batch["hr"])
-    trainer._d_step(hr, sr.to(hr), torch.Generator().manual_seed(7), {})
+    trainer._d_step(hr, sr.to(hr), _check_alpha(trainer, hr), {})
     return trainer
+
+
+def _check_alpha(trainer, hr: torch.Tensor):
+    """The check's penalty weights for the images ``hr``, on the trainer's
+    device (None without a penalty)."""
+    alpha = trainer._penalty_draw(hr.shape[0],
+                                  torch.Generator().manual_seed(7))
+    return None if alpha is None else alpha.to(trainer.device)
 
 
 # SRAGAN's gradient check (SRAGAN_CHECK, "kernel_free_control") holds each
@@ -1605,8 +1613,13 @@ def phase_cli_train(smi: str) -> dict:
     if val_lines != CLI_EPOCHS:
         fail(f"val_log.txt has {val_lines} lines for {CLI_EPOCHS} epochs")
     # the loop's structure at the default sizes: 512 images in batches of
-    # 16, a validation sweep of 64 images one at a time after each epoch
-    steps = CLI_EPOCHS * (512 // 16)
+    # 16, a validation sweep of 64 images one at a time after each epoch;
+    # the host calls the kernels in the steps it takes eagerly or captures
+    # into a CUDA graph, the graph launches them in the steps it replays
+    kinds = result["steps"]
+    if sum(kinds.values()) != CLI_EPOCHS * (512 // 16):
+        fail(f"cli train took steps {kinds}, not {CLI_EPOCHS * (512 // 16)}")
+    steps = kinds["eager"] + kinds["captured"]
     val_forwards = CLI_EPOCHS * 64
     gates = 12 * (3 + 1)
     expected = {"avg_max_pool": 4 * steps, "spatial_gate": 4 * steps,
@@ -1618,8 +1631,8 @@ def phase_cli_train(smi: str) -> dict:
     if launches != expected:
         fail(f"cli train launch counts {launches} differ from the loop's "
              f"{expected}")
-    print(f"cli train: {CLI_EPOCHS} epochs of {512 // 16} steps with their "
-          f"validation sweeps in {seconds:.1f} s; last epoch "
+    print(f"cli train: {CLI_EPOCHS} epochs of {512 // 16} steps ({kinds}) "
+          f"with their validation sweeps in {seconds:.1f} s; last epoch "
           f"{feed['epoch_s']:.2f} s, of which the loop waited on the data "
           f"feed {feed['feed_wait_s']:.3f} s (share "
           f"{feed['feed_share']:.4f}); final {final} [{smi}]")
@@ -2932,6 +2945,7 @@ def _dp_nccl_world_one(smi: str, batch: dict, store: str) -> dict:
                        init_method=f"file://{store}")
     backend = torch.distributed.get_backend(mesh.group)
     grouped.mesh = mesh
+    grouped.graphed = False  # a trainer in a group steps eagerly
     no_group = dataclasses.replace(mesh, group=None)
     try:
         reset_launches()
@@ -2983,6 +2997,8 @@ def _dp_nccl_world_one(smi: str, batch: dict, store: str) -> dict:
         # without its group, in alternating turns
         times = {"plain": [], "group": []}
         gen = torch.Generator().manual_seed(DP_ALPHA_SEED)
+        # both turns eager (``graphed`` off above), so the turns compare
+        # the all-reduces alone
         for turn in DP_TURNS:
             grouped.mesh = mesh if turn == "group" else no_group
             grouped.train_step(batch, gen)
@@ -3573,7 +3589,9 @@ def _feed_train(files: list, smi: str) -> tuple:
     ``DataLoader`` at DATA_BATCH with ``augment_rng``: its host images/s
     over DATA_FEED_BATCHES batches, then DATA_STEPS float32 unfused
     flagship steps on its first batches, with finite losses and exactly the
-    step's launches (:func:`step_launches`)."""
+    step's launches (:func:`step_launches`) in each step the host launches
+    (the eager and captured ones; a replayed step launches from its
+    graph)."""
     from sradsgan_tpu_torch.data import datasets as ds
 
     scale = DATA_SCALE
@@ -3590,7 +3608,6 @@ def _feed_train(files: list, smi: str) -> tuple:
     }
     trainer = make_trainer("f32")
     per_step = step_launches(trainer)
-    want = {k: DATA_STEPS * v for k, v in per_step.items()}
     out, paths = {}, {}
     for name, dataset in variants.items():
         loader = DataLoader(dataset, DATA_BATCH, shuffle=True, seed=0,
@@ -3606,7 +3623,11 @@ def _feed_train(files: list, smi: str) -> tuple:
                                               DATA_CROP, 3)):
             fail(f"{name}: batch shapes {batches[0]['lr'].shape}, "
                  f"{batches[0]['hr'].shape}")
+        # each variant's steps an eager one and a capture, both launched
+        # by the host
+        trainer._drop_graph()
         reset_launches()
+        kinds = dict(trainer.graph_stats)
         losses = []
         for batch in batches[:DATA_STEPS]:
             metrics = trainer.train_step({"lr": batch["lr"],
@@ -3614,16 +3635,23 @@ def _feed_train(files: list, smi: str) -> tuple:
             losses.append({k: float(v) for k, v in metrics.items()})
         torch.cuda.synchronize()
         launches = read_launches()
+        called = sum(trainer.graph_stats[k] - kinds[k]
+                     for k in ("eager", "captured"))
+        if called != DATA_STEPS:
+            fail(f"{name}: {called} of {DATA_STEPS} steps launched by the "
+                 f"host")
+        want = {k: called * v for k, v in per_step.items()}
         paths[f"train_{name}"] = launches
         ips = DATA_FEED_BATCHES * DATA_BATCH / host_s
         out[name] = {"host_images_per_s": ips, "losses": losses}
         print(f"{name}: {ips:.1f} host images/s (loader, {DATA_CROP}^2 x"
               f"{scale}, batch {DATA_BATCH}); {DATA_STEPS} f32 flagship "
-              f"steps, loss_G {[round(x['loss_G'], 5) for x in losses]}, "
-              f"launches {launches} [{smi}]")
+              f"steps ({called} launched by the host), loss_G "
+              f"{[round(x['loss_G'], 5) for x in losses]}, launches "
+              f"{launches} [{smi}]")
         if launches != want:
-            fail(f"{name}: {DATA_STEPS} steps launched {launches}, not "
-                 f"{want}")
+            fail(f"{name}: {called} host-launched steps launched "
+                 f"{launches}, not {want}")
         if not all(np.isfinite(list(x.values())).all() for x in losses):
             fail(f"{name}: losses are not finite: {losses}")
     del trainer

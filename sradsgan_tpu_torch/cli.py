@@ -210,7 +210,9 @@ def cmd_train(args) -> int:
     feed = dict(trainer.feed_stats)
     if feed.get("epoch_s"):
         feed["feed_share"] = feed["feed_wait_s"] / feed["epoch_s"]
-    print(json.dumps({"final": metrics, "feed": feed}))
+    # the steps taken eagerly, captured into a CUDA graph and replayed
+    print(json.dumps({"final": metrics, "feed": feed,
+                      "steps": trainer.graph_stats}))
     if not args.no_final_eval:
         from sradsgan_tpu_torch.evaluation.validate import (
             format_by_class_table, mfe_new_validate_by_class)

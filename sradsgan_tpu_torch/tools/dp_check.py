@@ -195,6 +195,7 @@ def _gan(sc: Dict[str, Any], device: str) -> Dict[str, Any]:
                             "discriminator": _stats(trainer.discriminator)}
     out["state"] = {"generator": _cpu_state(trainer.generator),
                     "discriminator": _cpu_state(trainer.discriminator)}
+    out["graph_stats"] = dict(trainer.graph_stats)
     alphas = torch.Generator().manual_seed(sc["alpha_seed"])
     out["turn_ms"] = _turn_ms(
         lambda: trainer.train_step(batch, alphas)["loss_G"], trainer, sc)

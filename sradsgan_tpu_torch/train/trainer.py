@@ -42,6 +42,24 @@ A step takes a batch as a dict of ``lr`` and ``hr`` in [0, 1]: NHWC float32
 numpy arrays, as ``bench.py`` feeds the JAX trainer, or the NCHW tensors the
 data feed (``data/loader.py:device_prefetch``) hands out.
 
+CUDA graphs.  On a CUDA device in a process without a data mesh, the step
+replays from a ``torch.cuda.CUDAGraph`` instead of launching its thousands
+of kernels one by one from the host.  The first step of a key (the input
+shapes and dtypes and each optimizer's lr) runs eagerly: cuDNN chooses its
+algorithms, Adam builds its state.  The second captures the whole step (G,
+VGG19, the D, both gradients and Adams, the penalty's grad of grad, the
+clip, the losses) into a private memory pool, with autocast's weight cache
+off, and replays it; every later step copies the images and the penalty's
+weights (still drawn on the CPU from the same generator, in the same
+order) into the graph's static tensors and replays it.  A new key runs
+eagerly and captures anew; :meth:`Trainer.load_checkpoint`, the chain
+initialization and the plateau reload drop the graph.  The Adams are built
+``capturable`` on that path (``train/state.py``).  The CPU and a data mesh
+step eagerly; :attr:`Trainer.graphed` holds the decision, made once at
+construction, and :attr:`Trainer.graph_stats` counts the steps of each
+kind.  Every step draws the penalty's weights the same way
+(:meth:`Trainer._penalty_draw`).
+
 :meth:`Trainer.train` is the epoch loop of the JAX ``Trainer.train``: a
 loader per epoch seeded ``cfg.seed + epoch``, a log line every 50 steps, the
 ``sample_interval`` evaluation of the current batch against its bicubic
@@ -98,10 +116,11 @@ from sradsgan_tpu_torch.metrics.fidelity import (batched_ergas, batched_psnr,
                                                  batched_ssim)
 from sradsgan_tpu_torch.models import create_generator, get_spec
 from sradsgan_tpu_torch.ops import plain_dtype
-from sradsgan_tpu_torch.parallel.mesh import (all_reduce_grads_,
+from sradsgan_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads_,
                                               all_reduce_sums, create_mesh,
                                               replicate, shard_batch)
-from sradsgan_tpu_torch.train.state import get_lr, make_optimizer, set_lr
+from sradsgan_tpu_torch.train.state import (get_lr, make_optimizer,
+                                            set_capturable, set_lr)
 from sradsgan_tpu_torch.utils.logging import Logger
 from sradsgan_tpu_torch.utils.plotting import plot_curves
 from sradsgan_tpu_torch.utils.spans import span
@@ -146,6 +165,40 @@ def partial_restore(model: nn.Module,
     return kept, skipped
 
 
+def _graphable(device: torch.device, mesh: Mesh) -> bool:
+    """Whether a trainer on ``device`` in ``mesh`` replays its step from a
+    CUDA graph: on a CUDA device in a process without a group (the CPU and
+    a data mesh, whose collectives a graph would not hold, step eagerly)."""
+    return device.type == "cuda" and mesh.group is None
+
+
+class _StepGraph:
+    """One train step captured into a CUDA graph: its key, the static
+    inputs its replays read (the images; the penalty's weights, None
+    without a penalty) and the losses they write."""
+
+    def __init__(self, key: tuple, lr_img: torch.Tensor,
+                 hr_img: torch.Tensor, alpha: Optional[torch.Tensor]):
+        self.key, self.lr, self.hr, self.alpha = key, lr_img, hr_img, alpha
+        self.graph = torch.cuda.CUDAGraph()
+        self.losses: Dict[str, torch.Tensor] = {}
+
+    def replay(self, lr_img: Optional[torch.Tensor] = None,
+               hr_img: Optional[torch.Tensor] = None,
+               alpha: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
+        """Copy the step's inputs in (``alpha`` on the CPU, copied without
+        waiting for the device), replay, and return copies of the losses,
+        which the next replay overwrites."""
+        if lr_img is not None:
+            self.lr.copy_(lr_img)
+            self.hr.copy_(hr_img)
+        if alpha is not None:
+            self.alpha.copy_(alpha.pin_memory(), non_blocking=True)
+        self.graph.replay()
+        return {k: v.clone() for k, v in self.losses.items()}
+
+
 class Trainer:
     """Models, optimizers and the step of one GAN (or pixel-only) model.
 
@@ -173,6 +226,12 @@ class Trainer:
         self.spec = get_spec(cfg.model)
         self.g_bf16 = cfg.bf16
         self.d_bf16 = cfg.bf16 and cfg.d_bf16
+        # the steps taken eagerly, captured into a graph and replayed from it
+        self.graph_stats = {"eager": 0, "captured": 0, "replayed": 0}
+        # decided once: the Adams are built capturable for it
+        self.graphed = _graphable(self.device, self.mesh)
+        self._graph: Optional[_StepGraph] = None
+        self._warm_key: Optional[tuple] = None  # the last eager step's
 
         self.generator = create_generator(
             cfg.model, cfg.scale, num_channels=cfg.num_channels,
@@ -191,10 +250,10 @@ class Trainer:
         self._replicate()
         o = cfg.optim
         self.g_opt = make_optimizer(self.generator.parameters(), o.lr, o.b1,
-                                    o.b2)
+                                    o.b2, self.graphed)
         if self.discriminator is not None:
             self.d_opt = make_optimizer(self.discriminator.parameters(),
-                                        o.lr, o.b1, o.b2)
+                                        o.lr, o.b1, o.b2, self.graphed)
         self.alpha_generator = torch.Generator().manual_seed(cfg.seed + 1)
         self.step = 0
         self.logger = Logger(cfg.model, os.path.join(cfg.model_dir, "logs"),
@@ -210,6 +269,7 @@ class Trainer:
         and the discriminator's parameters where name and shape match (the
         discriminator's running statistics stay fresh, as the JAX package
         leaves them)."""
+        self._drop_graph()
         prev = torch.load(path, map_location=self.device, weights_only=True)
         kept, skipped = partial_restore(self.generator, prev["generator"])
         if self.mesh.is_main:
@@ -223,6 +283,11 @@ class Trainer:
         for net in (self.generator, self.discriminator):
             if net is not None:
                 replicate(net, self.mesh)
+
+    def _drop_graph(self) -> None:
+        """Forget the captured step: the next step runs eagerly, the one
+        after it captures anew."""
+        self._graph = self._warm_key = None
 
     def _log(self, mode: str, results: Dict[str, Any]) -> None:
         if self.mesh.is_main:
@@ -281,20 +346,98 @@ class Trainer:
     def _local_step(self, batch: Batch,
                     generator: Optional[torch.Generator] = None
                     ) -> Dict[str, torch.Tensor]:
-        """:meth:`train_step` on this rank's rows of the global batch."""
+        """:meth:`train_step` on this rank's rows of the global batch:
+        eagerly, captured into a graph, or replayed from it (see the
+        module's docstring)."""
         with span("train.step"):
             lr_img = self._to_device(batch["lr"])
             hr_img = self._to_device(batch["hr"])
-            metrics: Dict[str, torch.Tensor] = {}
-            sr = self._g_step(lr_img, hr_img, metrics)
-            if self.discriminator is not None:
-                self._d_step(hr_img, sr.detach(),
-                             generator or self.alpha_generator, metrics)
+            alpha = self._penalty_draw(lr_img.shape[0],
+                                       generator or self.alpha_generator)
+            key = self._graph_key(lr_img, hr_img)
+            graph = self._graph
+            if key is not None and graph is not None and graph.key == key:
+                self.graph_stats["replayed"] += 1
+                with span("train.replay"):
+                    losses = graph.replay(lr_img, hr_img, alpha)
+            elif key is not None and key == self._warm_key:
+                self.graph_stats["captured"] += 1
+                with span("train.capture"):
+                    self._graph = graph = self._capture(key, lr_img, hr_img,
+                                                        alpha)
+                with span("train.replay"):
+                    losses = graph.replay()
+            else:
+                self.graph_stats["eager"] += 1
+                self._graph, self._warm_key = None, key
+                losses = self._step_losses(
+                    lr_img, hr_img,
+                    None if alpha is None else alpha.to(self.device))
             self.step += 1
-            means = (all_reduce_sums(metrics.values(), self.mesh)
-                     / self.mesh.world)
-            return {k: m.to(v.dtype)
-                    for (k, v), m in zip(metrics.items(), means.unbind())}
+            return losses
+
+    def _step_losses(self, lr_img: torch.Tensor, hr_img: torch.Tensor,
+                     alpha: Optional[torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The G and D updates of one step, the penalty's weights ``alpha``
+        on the device (:meth:`_penalty_draw`), and its losses, means over
+        the ranks."""
+        metrics: Dict[str, torch.Tensor] = {}
+        sr = self._g_step(lr_img, hr_img, metrics)
+        if self.discriminator is not None:
+            self._d_step(hr_img, sr.detach(), alpha, metrics)
+        means = (all_reduce_sums(metrics.values(), self.mesh)
+                 / self.mesh.world)
+        return {k: m.to(v.dtype)
+                for (k, v), m in zip(metrics.items(), means.unbind())}
+
+    def _graph_key(self, lr_img: torch.Tensor,
+                   hr_img: torch.Tensor) -> Optional[tuple]:
+        """What a captured step is good for: the images' shapes and dtypes
+        and each optimizer's lr (None where the step is not graphed)."""
+        if not self.graphed:
+            return None
+        lrs = tuple(group["lr"] for opt in (self.g_opt, self.d_opt)
+                    if opt is not None for group in opt.param_groups)
+        return (lr_img.shape, lr_img.dtype, hr_img.shape, hr_img.dtype, lrs)
+
+    def _penalty_draw(self, batch: int, generator: torch.Generator
+                      ) -> Optional[torch.Tensor]:
+        """The penalty's weights of this rank's ``batch`` rows, on the CPU:
+        the global batch's draws from ``generator``, this rank's rows (None
+        without a penalty)."""
+        if (self.discriminator is None
+                or self.cfg.gan.gan_type != "wgan-gp"):
+            return None
+        mesh = self.mesh
+        return gan_losses.interpolation_weights(
+            batch * mesh.world, generator, "cpu")[mesh.rank::mesh.world]
+
+    def _capture(self, key: tuple, lr_img: torch.Tensor,
+                 hr_img: torch.Tensor,
+                 alpha: Optional[torch.Tensor]) -> _StepGraph:
+        """The step captured into a CUDA graph whose static inputs hold
+        this step's images and penalty weights (``alpha``, on the CPU);
+        nothing runs until it is replayed.  The parameters' gradients are
+        the graph's own from its first replay."""
+        static = _StepGraph(key, lr_img.clone(), hr_img.clone(),
+                            None if alpha is None else alpha.to(self.device))
+        for net in (self.generator, self.discriminator):
+            if net is not None:
+                for p in net.parameters():
+                    p.grad = None
+        # autocast's weight cache would hold casts across the capture's end
+        cache = torch.is_autocast_cache_enabled()
+        torch.set_autocast_cache_enabled(False)
+        try:
+            # thread-local: the data feed's thread works on during capture
+            with torch.cuda.graph(static.graph,
+                                  capture_error_mode="thread_local"):
+                static.losses = self._step_losses(static.lr, static.hr,
+                                                  static.alpha)
+        finally:
+            torch.set_autocast_cache_enabled(cache)
+        return static
 
     def _g_step(self, lr_img: torch.Tensor, hr_img: torch.Tensor,
                 metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -326,7 +469,7 @@ class Trainer:
         return sr
 
     def _d_step(self, hr_img: torch.Tensor, sr: torch.Tensor,
-                generator: torch.Generator,
+                alpha: Optional[torch.Tensor],
                 metrics: Dict[str, torch.Tensor]) -> None:
         gan = self.cfg.gan
         wgan_gp = gan.gan_type == "wgan-gp"
@@ -336,10 +479,6 @@ class Trainer:
                 relativistic=gan.relativistic)
             objective = loss
             if wgan_gp:
-                mesh = self.mesh  # the global batch's draws, this rank's rows
-                alpha = gan_losses.interpolation_weights(
-                    hr_img.shape[0] * mesh.world, generator,
-                    self.device)[mesh.rank::mesh.world]
                 with span("train.penalty"):
                     gp = gan_losses.gradient_penalty(self._d, hr_img, sr,
                                                      alpha)
@@ -609,6 +748,7 @@ class Trainer:
                                       weights_only=True)
                     self.generator.load_state_dict(prev["generator"])
                     self._replicate()
+                    self._drop_graph()
                 elif mesh.is_main:
                     print("plateau: no best checkpoint yet "
                           "(no finite-improvement epoch so far)")
@@ -652,14 +792,15 @@ class Trainer:
     def load_checkpoint(self, path: str) -> None:
         """Restore what :meth:`save_checkpoint` wrote (rank 0's copy on
         every rank)."""
+        self._drop_graph()
         state = torch.load(path, map_location=self.device, weights_only=True)
         self.generator.load_state_dict(state["generator"])
         if self.discriminator is not None and "discriminator" in state:
             self.discriminator.load_state_dict(state["discriminator"])
-        if "g_opt" in state:
-            self.g_opt.load_state_dict(state["g_opt"])
-        if self.d_opt is not None and "d_opt" in state:
-            self.d_opt.load_state_dict(state["d_opt"])
+        for key, opt in (("g_opt", self.g_opt), ("d_opt", self.d_opt)):
+            if opt is not None and key in state:
+                opt.load_state_dict(state[key])
+                set_capturable(opt, self.graphed)
         self.step = state["step"]
         self._replicate()
 

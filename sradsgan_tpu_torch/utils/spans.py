@@ -18,6 +18,11 @@ enabled flag, and returns a shared no-op context.
 The spans of the port (name: where; inside):
 
 - ``train.step``: ``Trainer._local_step``; the root of a step
+- ``train.capture``: the step's capture into a CUDA graph, the inner
+  phases below inside it; in the step (the second step of a graph's key)
+- ``train.replay``: the copies of the images and the penalty's weights into
+  the graph's static tensors, and its replay; in the step (every graphed
+  step after the first)
 - ``train.g_forward``: G, pixel loss, content term, D on SR; in the step
 - ``train.vgg``: VGG19 on SR and HR and the content loss; in g_forward
 - ``train.g_backward``: ``torch.autograd.grad`` of the G's loss; in the step
@@ -28,6 +33,12 @@ The spans of the port (name: where; inside):
 - ``train.d_backward``: ``torch.autograd.grad`` of the D's objective; in the
   step
 - ``train.d_optim``: the D's all-reduce, Adam and weight clip; in the step
+The inner phases, ``train.g_forward`` to ``train.d_optim``, open only on a
+step that runs eagerly or is captured (inside ``train.capture`` there): a
+replayed step launches nothing of its own, so its phases are not spanned,
+and a reader of per-phase host time (``port_bench/spans_segment.py``) sees
+them only on those steps.
+
 - ``serve.request``: ``Predictor.__call__``; the root of a request
 - ``serve.pad``: the reflect pad up to the bucket; in the request
 - ``serve.forward``: staging to the device and the generator's launches

@@ -162,6 +162,8 @@ def test_train_with_lpips_trains(tmp_path, monkeypatch, capsys):
     assert seen == [False]
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(list(out["final"].values())).all()
+    # the CPU steps eagerly
+    assert out["steps"] == {"eager": 1, "captured": 0, "replayed": 0}
 
 
 def test_infer_refuses_ckpt_with_weights(tmp_path):

@@ -361,6 +361,15 @@ def test_the_ranks_end_bit_equal(run, scenario):
             assert torch.equal(a[key], b[key]), (scenario, net, key)
 
 
+@pytest.mark.parametrize("model", ["sradsgan", "srgan"])
+def test_the_ranks_step_eagerly(run, model):
+    """A rank of a data mesh never captures its step into a CUDA graph
+    (its collectives stay outside a graph): every checked step eager."""
+    for ranks in run["ranks"]:
+        assert ranks[model]["graph_stats"] == {"eager": STEPS, "captured": 0,
+                                               "replayed": 0}
+
+
 def test_an_epoch_over_an_uneven_set(run, tmp_path):
     """``Trainer.train()`` for one epoch over 11 images at batch 4: both
     ranks take 2 steps, and end where one process ends."""

@@ -1,7 +1,9 @@
 """The span facility (``utils/spans.py``) and the spans of the train step
 and of a request, on the CPU at tiny widths."""
 
+import re
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,6 +21,8 @@ from sradsgan_tpu_torch.utils.spans import recording, span  # noqa: E402
 TRAIN_SPANS = ["train.step", "train.g_forward", "train.vgg",
                "train.g_backward", "train.g_optim", "train.d_forward",
                "train.penalty", "train.d_backward", "train.d_optim"]
+# a graphed step's (tests/test_torch_trainer_graph.py records them on a card)
+GRAPH_SPANS = ["train.capture", "train.replay"]
 SERVE_SPANS = ["serve.request", "serve.pad", "serve.forward", "serve.fetch",
                "serve.crop"]
 
@@ -167,3 +171,18 @@ def test_a_request_records_its_phases():
     assert [s.parent for s in records] == [-1, 0, 0, 0, 0]
     request = records[0]
     assert sum(s.ns for s in records[1:]) <= request.ns
+
+
+def test_every_span_of_the_port_is_listed_and_documented():
+    """The span names in the port's modules (``"train.*"`` and
+    ``"serve.*"`` literals outside ``utils/spans.py``) are this file's
+    lists, and each is in ``utils/spans.py``'s table of spans."""
+    root = Path(spans.__file__).resolve().parent.parent
+    opened = set()
+    for path in root.rglob("*.py"):
+        if path.name != "spans.py":
+            opened |= set(re.findall(r'"((?:train|serve)\.[a-z_]+)"',
+                                     path.read_text()))
+    assert opened == set(TRAIN_SPANS + GRAPH_SPANS + SERVE_SPANS)
+    for name in opened:
+        assert f"``{name}``" in spans.__doc__, name
