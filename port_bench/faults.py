@@ -17,7 +17,8 @@ import torch
 
 
 def unchanged(trainer, step: Callable) -> Callable:
-    nets = [trainer.generator, trainer.discriminator]
+    nets = [n for n in (trainer.generator, trainer.discriminator)
+            if n is not None]
 
     def run(batch):
         saved = [{k: v.clone() for k, v in n.state_dict().items()}

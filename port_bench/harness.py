@@ -4,15 +4,21 @@ the comparison against limits, and the result line."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
 import subprocess
 import sys
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Mapping, Optional
 
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "sradsgan_tpu")
+ROOT = Path(__file__).resolve().parent  # the benchmark's own directory
+# a recipe's "gan": "wgan-gp" trains G against the CBAM D with VGG19's
+# content loss; "none" (or no key) is a pixel-only step of G
+RECIPES = ("wgan-gp", "none")
 
 
 @dataclasses.dataclass
@@ -39,7 +45,8 @@ def load_cell(name: str, manifest_path: Path) -> Cell:
     """The cell ``name`` of the manifest: its configuration from the file
     the manifest names, its mix from ``traffic/<traffic>.json``, its limits
     from ``limits/<cell>.json`` (both in the manifest's first path), and
-    the metrics it reports."""
+    the metrics it reports.  A configuration's ``reference``, a path under
+    that first path, is made absolute."""
     manifest = load_json(manifest_path)
     base = Path(manifest_path).resolve().parent
     root = base / manifest["paths"][0]
@@ -50,6 +57,8 @@ def load_cell(name: str, manifest_path: Path) -> Cell:
     config = next(c for c in manifest["configs"]
                   if c["name"] == entry["config"])
     cfg = load_json(base / config["file"])
+    if "reference" in cfg:
+        cfg["reference"] = str(root / cfg["reference"])
     traffic = load_json(root / "traffic" / f"{entry['traffic']}.json")
 
     def reports(metric: Mapping) -> bool:
@@ -63,14 +72,60 @@ def load_cell(name: str, manifest_path: Path) -> Cell:
                 load_json(root / "limits" / f"{name}.json"), e2e, layer)
 
 
-def metric_reader(name: str, root: Path) -> Callable:
-    """``read(ctx)`` of ``metrics/<name>.py``."""
-    path = root / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"port_bench_metric_{name.replace('.', '_')}", path)
+def load_module(path: Path, name: str) -> ModuleType:
+    """The Python file ``path``, loaded by path as the module ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def metric_reader(name: str, root: Path) -> Callable:
+    """``read(ctx)`` of ``metrics/<name>.py``."""
+    return load_module(root / "metrics" / f"{name}.py",
+                       f"port_bench_metric_{name.replace('.', '_')}").read
+
+
+def reference_path(config: Mapping) -> Optional[str]:
+    """The configuration's own plain reference, its ``reference`` resolved
+    against the benchmark's directory (``load_cell`` has made it absolute
+    already); None for the built-in generators of ``reference/models.py``."""
+    ref = config.get("reference")
+    return None if ref is None else str(ROOT / ref)
+
+
+@functools.lru_cache(maxsize=None)
+def reference_module(path: str) -> ModuleType:
+    """A configuration's reference module, loaded once a process: it gives
+    ``build(device, **widths)``, the generator with uninitialised storage,
+    and ``TINY_WIDTHS``, its widths for the CPU copies."""
+    return load_module(Path(path), f"port_bench_reference_{Path(path).stem}")
+
+
+def build_reference(path: Optional[str], model: str, device,
+                    widths: Mapping):
+    """The reference generator with uninitialised storage on ``device``:
+    the module at ``path``'s, or the built-in ``model``."""
+    if path is None:
+        from port_bench.reference.models import build
+        return build(model, device, **widths)
+    return reference_module(path).build(device, **widths)
+
+
+def build_generator(config: Mapping, device):
+    """The configuration's reference generator, uninitialised, on
+    ``device``."""
+    return build_reference(reference_path(config), config["model"], device,
+                           config["widths"])
+
+
+def adversarial(config: Mapping) -> bool:
+    """Whether the configuration's recipe trains a D (``RECIPES``)."""
+    gan = config.get("recipe", {}).get("gan", "none")
+    if gan not in RECIPES:
+        raise ValueError(f"the harness has no recipe {gan!r}; it has "
+                         f"{RECIPES}")
+    return gan != "none"
 
 
 def read_metrics(cell: Cell, ctx: Mapping) -> Dict[str, Dict]:

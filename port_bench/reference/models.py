@@ -17,6 +17,11 @@ from its input and returns the input's dtype.  ``Numerics`` decides how the
 operands of every convolution and matrix product are rounded besides:
 not at all (the reference), or through float8 e4m3 with one scale a tensor
 (the control that ``correct`` must reject).
+
+A configuration's own reference (``"reference"`` in its file, loaded by
+path) builds its dense layers from ``Conv`` and ``Linear`` and takes its
+other products, attention's among them, through ``Products.matmul`` and
+``Products.einsum``, so that ``set_numerics`` reaches every product.
 """
 
 from __future__ import annotations
@@ -60,10 +65,35 @@ class Conv(nn.Conv2d):
                         self.padding)
 
 
+class Linear(nn.Linear):
+    """A dense layer whose operands go through the model's numerics."""
+
+    numerics: Numerics = EXACT
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = self.numerics
+        return F.linear(n(x), n(self.weight), self.bias)
+
+
+class Products(nn.Module):
+    """A module whose matrix products take their operands through the
+    model's numerics."""
+
+    numerics: Numerics = EXACT
+
+    def matmul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        n = self.numerics
+        return n(a) @ n(b)
+
+    def einsum(self, equation: str, *operands: torch.Tensor
+               ) -> torch.Tensor:
+        return torch.einsum(equation, *map(self.numerics, operands))
+
+
 def set_numerics(model: nn.Module, numerics: Numerics) -> nn.Module:
     for m in model.modules():
-        if isinstance(m, (Conv, SpatialSelfAttention, ChannelSelfAttention,
-                          ChannelGate)):
+        if isinstance(m, (Conv, Linear, Products, SpatialSelfAttention,
+                          ChannelSelfAttention, ChannelGate)):
             m.numerics = numerics
     return model
 

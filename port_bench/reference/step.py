@@ -1,15 +1,20 @@
-"""The plain reference of one WGAN-GP train step, and of a served request.
+"""The plain reference of one train step, WGAN-GP or pixel-only by the
+configuration's recipe, and of a served request.
 
-The step is the published recipe (``main_sradsgan.py:31-58``): the G loss
-``w_pixel * L1(sr, hr) + w_content * L1(VGG(sr), VGG(hr)) - w_gan *
-mean(D(sr))`` and one Adam step on G; then the D loss ``-mean(D(hr)) +
-mean(D(sr))`` plus the gradient penalty on random interpolates (the norm of
-D's input gradient over the channels at each pixel, ``(norm - 1)^2``
-averaged), whose gradient the reference applies ``lambda + 1`` times while
-the logged loss carries ``lambda``; one Adam step on D, then every D
-parameter clipped to ``+-clip``.  BatchNorm layers run in train mode over
-the whole batch.  Nothing of the program.  In the configuration's mixed precision the
-forwards run under bf16 autocast (``models.py``), the losses in float32.
+The WGAN-GP step is the published recipe (``main_sradsgan.py:31-58``):
+the G loss ``w_pixel * L1(sr, hr) + w_content * L1(VGG(sr), VGG(hr)) -
+w_gan * mean(D(sr))`` (L1 the recipe's ``pixel`` loss) and one Adam step
+on G; then the D loss ``-mean(D(hr)) + mean(D(sr))`` plus the gradient
+penalty on random interpolates (the norm of D's input gradient over the
+channels at each pixel, ``(norm - 1)^2`` averaged), whose gradient the
+reference applies ``lambda + 1`` times while the logged loss carries
+``lambda``; one Adam step on D, then every D parameter clipped to
+``+-clip``.  BatchNorm layers run in train mode over the whole batch.  The
+pixel-only step (``"gan": "none"``) is the configuration's pixel loss of
+G's output, times ``weight_pixel`` (1 where the recipe names none), and
+one Adam step on G.  Nothing of the program.  In the configuration's mixed
+precision the forwards run under bf16 autocast (``models.py``), the losses
+in float32.
 """
 
 from __future__ import annotations
@@ -19,12 +24,38 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from port_bench.harness import adversarial, build_generator
 from port_bench.reference.models import EXACT, Numerics, build, set_numerics
 from port_bench.schedule import recording
 
 
 def l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a - b).abs().mean()
+
+
+def l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d = a - b
+    return (d * d).mean()
+
+
+PIXEL_LOSSES = {"l1": l1, "l2": l2}
+
+
+def pixel_only(g, recipe: Mapping, lr: torch.Tensor, hr: torch.Tensor,
+               bf16: bool = False) -> Tuple[Dict, Tuple[List]]:
+    """The step's losses and the gradients of G's parameters: the pixel
+    loss of G's output, G's forward under bf16 autocast with ``bf16``, the
+    loss in float32."""
+    g_params = list(g.parameters())
+    if bf16:
+        with torch.autocast(lr.device.type, dtype=torch.bfloat16):
+            sr = g(lr)
+    else:
+        sr = g(lr)
+    pixel = PIXEL_LOSSES[recipe["pixel"]](sr.float(), hr)
+    loss_g = recipe.get("weight_pixel", 1.0) * pixel
+    return ({"pixel": pixel, "loss_G": loss_g},
+            (list(torch.autograd.grad(loss_g, g_params)),))
 
 
 def wgan_gp(g, d, vgg, recipe: Mapping, lr: torch.Tensor, hr: torch.Tensor,
@@ -43,10 +74,11 @@ def wgan_gp(g, d, vgg, recipe: Mapping, lr: torch.Tensor, hr: torch.Tensor,
                 return net(x)
         return run if bf16 else net
     g, d, vgg = mixed(g), mixed(d), mixed(vgg)
+    loss = PIXEL_LOSSES[r["pixel"]]
     sr = g(lr)
-    pixel = l1(sr.float(), hr)
+    pixel = loss(sr.float(), hr)
     f_sr, f_hr = vgg(torch.cat([sr.float(), hr])).float().chunk(2)
-    content = l1(f_sr, f_hr.detach())
+    content = loss(f_sr, f_hr.detach())
     adv = -d(sr).float().mean()
     loss_g = (r["weight_pixel"] * pixel + r["weight_content"] * content
               + r["weight_gan"] * adv)
@@ -66,55 +98,67 @@ def wgan_gp(g, d, vgg, recipe: Mapping, lr: torch.Tensor, hr: torch.Tensor,
 
 
 class ReferenceStep:
-    """G, D, VGG19 and their two Adams, from the benchmark's weights."""
+    """G and its Adam, and for WGAN-GP the D with its Adam and VGG19, from
+    the benchmark's weights."""
 
     def __init__(self, config: Mapping, weights: Mapping[str, Mapping],
                  device, numerics: Numerics = EXACT):
-        widths = config["widths"]
         self.recipe = config["recipe"]
         self.bf16 = bool(config["precision"]["train_bf16"])
-        self.g = set_numerics(build(config["model"], device, **widths),
-                              numerics)
-        self.d = set_numerics(build("discriminator", device), numerics)
-        self.vgg = set_numerics(build("vgg", device), numerics)
-        for net, key in ((self.g, "g"), (self.d, "d"), (self.vgg, "vgg")):
+        self.g = set_numerics(build_generator(config, device), numerics)
+        self.d = self.vgg = None
+        if adversarial(config):
+            self.d = set_numerics(build("discriminator", device), numerics)
+            self.vgg = set_numerics(build("vgg", device), numerics)
+            self.vgg.load_state_dict(weights["vgg"])
+            self.vgg.train().requires_grad_(False)
+        for key, net in self.nets().items():
             net.load_state_dict(weights[key])
             net.train()
-        self.vgg.requires_grad_(False)
         r = self.recipe
-        self.g_opt, self.d_opt = (
-            torch.optim.Adam(net.parameters(), lr=r["lr"],
-                             betas=tuple(r["betas"]), eps=r["eps"])
-            for net in (self.g, self.d))
+        self.opts = [torch.optim.Adam(net.parameters(), lr=r["lr"],
+                                      betas=tuple(r["betas"]), eps=r["eps"])
+                     for net in self.nets().values()]
+
+    def nets(self) -> Dict[str, torch.nn.Module]:
+        """The trained networks by key: "g", and "d" for WGAN-GP."""
+        return {k: n for k, n in (("g", self.g), ("d", self.d))
+                if n is not None}
 
     def step(self, lr: torch.Tensor, hr: torch.Tensor,
-             alpha: torch.Tensor, g_grads: Optional[Callable] = None
-             ) -> Dict:
-        """One step on NCHW float32 batches; returns the losses as floats
+             alpha: Optional[torch.Tensor],
+             g_grads: Optional[Callable] = None) -> Dict:
+        """One step on NCHW float32 batches (``alpha``: the penalty's
+        weights, None for a pixel-only step); returns the losses as floats
         and the gradients applied, by network and parameter name.
         ``g_grads`` changes the G's gradients before its update (a planted
         fault)."""
-        losses, grads = wgan_gp(self.g, self.d, self.vgg, self.recipe, lr,
-                                hr, alpha, self.bf16)
+        if self.d is None:
+            losses, grads = pixel_only(self.g, self.recipe, lr, hr,
+                                       self.bf16)
+        else:
+            losses, grads = wgan_gp(self.g, self.d, self.vgg, self.recipe,
+                                    lr, hr, alpha, self.bf16)
         if g_grads is not None:
-            grads = (g_grads(grads[0]), grads[1])
-        for opt, net, net_grads in ((self.g_opt, self.g, grads[0]),
-                                    (self.d_opt, self.d, grads[1])):
+            grads = (g_grads(grads[0]),) + tuple(grads[1:])
+        for opt, net, net_grads in zip(self.opts, self.nets().values(),
+                                       grads):
             for p, g in zip(net.parameters(), net_grads):
                 p.grad = g
             opt.step()
-        with torch.no_grad():
-            for p in self.d.parameters():
-                p.clamp_(-self.recipe["clip"], self.recipe["clip"])
-        names = ([n for n, _ in net.named_parameters()]
-                 for net in (self.g, self.d))
+        if self.d is not None:
+            with torch.no_grad():
+                for p in self.d.parameters():
+                    p.clamp_(-self.recipe["clip"], self.recipe["clip"])
+        names = {key: [n for n, _ in net.named_parameters()]
+                 for key, net in self.nets().items()}
         return {"losses": {k: float(v.detach()) for k, v in losses.items()},
-                "grads": {key: dict(zip(n, g)) for key, n, g
-                          in zip(("g", "d"), names, grads)}}
+                "grads": {key: dict(zip(names[key], g))
+                          for key, g in zip(names, grads)}}
 
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        return {"g": dict(self.g.named_parameters()),
-                "d": dict(self.d.named_parameters())}
+        return {key: dict(net.named_parameters())
+                for key, net in self.nets().items()}
 
 
 def follow(config: Mapping, weights: Mapping, batches: Sequence,
@@ -123,9 +167,10 @@ def follow(config: Mapping, weights: Mapping, batches: Sequence,
            schedule: Optional[List] = None) -> Dict:
     """The reference over the checked steps: each step's losses, the first
     step's gradient norms, and the parameters' change norms after the first
-    step and after the last, by network and parameter name.  ``schedule``:
-    a list that receives the first step's calls of the six functions
-    (``port_bench.schedule``)."""
+    step and after the last, by network and parameter name.  ``alphas``:
+    the penalty's weights of each step (None each for a pixel-only step).
+    ``schedule``: a list that receives the first step's calls of the six
+    functions (``port_bench.schedule``) in the trained networks."""
     ref = ReferenceStep(config, weights, device, numerics)
 
     def change():
@@ -134,8 +179,9 @@ def follow(config: Mapping, weights: Mapping, batches: Sequence,
                 for net, ps in ref.params().items()}
     losses, grad_norms, change1 = [], None, None
     for i, ((lr, hr), alpha) in enumerate(zip(batches, alphas)):
-        with recording(ref.g, ref.d) as calls:
-            out = ref.step(lr.to(device), hr.to(device), alpha.to(device),
+        with recording(*ref.nets().values()) as calls:
+            out = ref.step(lr.to(device), hr.to(device),
+                           None if alpha is None else alpha.to(device),
                            g_grads)
         if i == 0 and schedule is not None:
             schedule += calls

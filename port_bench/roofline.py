@@ -97,8 +97,9 @@ def schedule_bound_s(entries: Iterable, max_sm_mhz: float) -> float:
 
 def share(bound: float, kernel_s: float) -> Optional[float]:
     """Percent: the least seconds of the work over the seconds its kernels
-    took; None where no kernel of the program ran."""
-    return 100.0 * bound / kernel_s if kernel_s > 0 else None
+    took; None where no kernel of the program ran or the work has no call
+    of the six functions."""
+    return 100.0 * bound / kernel_s if kernel_s > 0 and bound > 0 else None
 
 
 def roofline_share(calls: List[Mapping], max_sm_mhz: float

@@ -21,19 +21,22 @@ work at the cell's shapes and precision, whatever launches it:
 
 The CA-SA tails are the unfused formulation, the program's default, which
 both configurations state; a fused tail (``rab_tail``) is no unit's work.
+A configuration whose reference holds none of these modules has an empty
+schedule, and the kernel-roofline readers read nothing in its cells.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Iterator, List, NamedTuple, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
+from port_bench.harness import build_reference, reference_path
 from port_bench.reference.models import (ChannelGate, SpatialGate,
-                                         SpatialSelfAttention, build)
+                                         SpatialSelfAttention)
 
 GATE_WEIGHT = (1, 2, 7, 7)  # the SLAM's 7x7 conv over (mean, max)
 
@@ -120,9 +123,9 @@ def recording(*nets: nn.Module) -> Iterator[List[Entry]]:
 
 
 @functools.lru_cache(maxsize=None)
-def _request(model: str, widths: Tuple, batch: int, size: int
-             ) -> Tuple[Entry, ...]:
-    g = build(model, "meta", **dict(widths)).eval()
+def _request(reference: Optional[str], model: str, widths: Tuple,
+             batch: int, size: int) -> Tuple[Entry, ...]:
+    g = build_reference(reference, model, "meta", dict(widths)).eval()
     with recording(g) as entries, torch.no_grad():
         g(torch.empty(batch, 3, size, size, device="meta"))
     return tuple(entries)
@@ -132,5 +135,5 @@ def request(config, batch: int, size: int) -> Tuple[Entry, ...]:
     """The calls of one request of ``batch`` images padded to ``size``
     square, in float32 (the serving precision): the reference generator's
     forward on the meta device."""
-    return _request(config["model"], tuple(sorted(config["widths"].items())),
-                    batch, size)
+    return _request(reference_path(config), config["model"],
+                    tuple(sorted(config["widths"].items())), batch, size)

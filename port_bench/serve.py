@@ -20,16 +20,14 @@ import torch
 from torch.profiler import record_function
 
 from port_bench import compare, trace
-from port_bench.harness import Cell
-from port_bench.reference.models import build
+from port_bench.harness import Cell, build_generator
 from port_bench.reference.step import bucket_of, serve as reference_serve
 from port_bench.traffic import check_sample, request_deck
 from port_bench.weights import make_weights
 
 
 def generator_weights(config, seed: int, device) -> Dict:
-    return make_weights(build(config["model"], device, **config["widths"]),
-                        seed, "generator")
+    return make_weights(build_generator(config, device), seed, "generator")
 
 
 def program_predictor(config, mix, weights, device):
@@ -148,7 +146,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
 
 def reference(config, mix, check_inputs, device):
     """The reference's answers to the sampled requests."""
-    g = build(config["model"], device, **config["widths"])
+    g = build_generator(config, device)
     g.load_state_dict(check_inputs["weights"])
     g.eval()
     return [reference_serve(g, lr, mix["buckets"], config["scale"], device)

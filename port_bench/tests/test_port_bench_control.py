@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from port_bench import calibrate, harness, serve, train
-from port_bench.reference.models import Numerics
+from port_bench.reference.models import (EXACT, Linear, Numerics, Products,
+                                         set_numerics)
 from port_bench.tests.tiny import float32_copy
 
 BENCH = Path(__file__).resolve().parents[1]
@@ -49,6 +50,33 @@ def test_fp8_numerics_round_to_float8():
     assert torch.equal(q, (x / (300 / 448)).to(torch.float8_e4m3fn).float()
                        * (300 / 448))
     assert not torch.equal(q, x)
+
+
+def test_linear_and_products_take_the_models_numerics():
+    """Bitwise plain under exact numerics, rounded to float8 once
+    ``set_numerics`` gives the control's."""
+    g = torch.Generator().manual_seed(3)
+    x, a, b = (torch.randn(*s, generator=g) for s in ((4, 6), (2, 5, 6),
+                                                      (2, 6, 3)))
+    net = torch.nn.Sequential(Linear(6, 3), Products())
+    with torch.no_grad():
+        net[0].weight.copy_(torch.randn(3, 6, generator=g))
+        net[0].bias.copy_(torch.randn(3, generator=g))
+    lin, prod = net
+    plain = (torch.nn.functional.linear(x, lin.weight, lin.bias), a @ b,
+             torch.einsum("bij,bjk->bik", a, b))
+
+    def outputs():
+        return (lin(x), prod.matmul(a, b), prod.einsum("bij,bjk->bik", a, b))
+    assert lin.numerics is EXACT and prod.numerics is EXACT
+    for got, want in zip(outputs(), plain):
+        assert torch.equal(got, want)
+    set_numerics(net, Numerics(fp8=True))
+    for got, want in zip(outputs(), plain):
+        assert not torch.equal(got, want)
+        assert torch.allclose(got, want, rtol=0.2, atol=0.2)
+    n = Numerics(fp8=True)
+    assert torch.equal(prod.matmul(a, b), n(a) @ n(b))
 
 
 @pytest.mark.gpu

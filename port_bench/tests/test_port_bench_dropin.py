@@ -1,10 +1,17 @@
 """A later change adds a configuration, a traffic mix, a per-layer metric
 and a cell by adding files and manifest entries alone: the harness finds
-each by its name, and no file that was there changes."""
+each by its name, and no file that was there changes.  A configuration of
+another model of the program's registry brings its own plain reference and
+a pixel-only recipe the same way (``dropin.py``)."""
 
 import hashlib
 import json
 
+import pytest
+
+from port_bench import calibrate, harness, train
+from port_bench.tests.dropin import (SERVE_CELL, SERVE_METRICS, TRAIN_CELL,
+                                     TRAIN_METRICS, add_edsr)
 from port_bench.tests.tiny import float32_copy, run_cell
 
 NEW_METRIC = '''"""Steps the untraced window took."""
@@ -62,3 +69,53 @@ def test_new_files_and_entries_are_found(tmp_path):
     assert rc == 0 and set(line["metrics"]) == {"train_mpix_s", "setup_s"}
     after = digests(bench)
     assert {p: d for p, d in after.items() if p in before} == before
+
+
+def test_a_pixel_only_configuration_of_another_model_drops_in(tmp_path):
+    """EDSR with its own reference module and an L1 recipe: both cells run
+    correct traced and untraced, and no file that was there changes."""
+    manifest = float32_copy(tmp_path)
+    bench = tmp_path / "port_bench"
+    before = digests(bench)
+    train_cell, serve_cell = add_edsr(manifest)
+    for cell, e2e, layer in ((train_cell, {"train_mpix_s"}, TRAIN_METRICS),
+                             (serve_cell, {"serve_mpix_s", "request_p95_ms"},
+                              SERVE_METRICS)):
+        for trace in (0, 1):
+            rc, line, err = run_cell(manifest, cell, trace=trace)
+            assert rc == 0, err[-3000:]
+            assert line["correct"] is True, line
+            want = set(layer) if trace else e2e | {"setup_s"}
+            assert set(line["metrics"]) == want, line["metrics"]
+    after = digests(bench)
+    assert {p: d for p, d in after.items() if p in before} == before
+
+
+@pytest.mark.parametrize("cell,fault", [(TRAIN_CELL, "half_batch"),
+                                        (TRAIN_CELL, "unchanged"),
+                                        (SERVE_CELL, "altered_answer")])
+def test_a_fault_fails_the_dropin(tmp_path, cell, fault):
+    manifest = float32_copy(tmp_path)
+    add_edsr(manifest)
+    rc, line, err = run_cell(manifest, cell, plant=fault)
+    assert rc == 0, err[-3000:]
+    assert line["correct"] is False, line
+
+
+def test_the_control_fails_the_dropin(tmp_path):
+    """The reference with float8 operands, in the program's place, fails
+    the drop-in's limits through the module's ``Conv``s, and so does the
+    reference on half of each batch."""
+    manifest = float32_copy(tmp_path)
+    add_edsr(manifest)
+    c = harness.load_cell(TRAIN_CELL, manifest)
+    measured = train.run(c, 2_147_483_659, 0.0, False, "cpu", str(tmp_path))
+    assert harness.passed(harness.check(measured["readings"], c.limits))
+    assert set(measured["readings"]) == {
+        f"{k}{w}" for k in ("grad_gap_g", "change1_gap", "change_gap")
+        for w in ("", "_worst")} | {"loss_gap", "loss_gap_first",
+                                    "loss_gap_g"}
+    upper = calibrate.train_upper(c, measured, "cpu")
+    for name in ("control", "half_batch"):
+        assert not harness.passed(harness.check(upper[name], c.limits)), (
+            name, upper[name])

@@ -10,6 +10,7 @@ import sys
 from pathlib import Path
 
 from port_bench import harness
+from port_bench.tests.dropin import add_edsr
 from port_bench.tests.tiny import float32_copy, run_process
 
 REPO = Path(__file__).resolve().parents[2]
@@ -37,6 +38,43 @@ def test_command_imports_no_jax():
 def test_reference_imports_neither_jax_nor_the_program():
     mods = top_level("port_bench.reference.models, port_bench.reference.step")
     assert not mods & (FORBIDDEN | {"sradsgan_tpu_torch"})
+
+
+def reference_files(manifest: Path) -> list:
+    """The reference module of every configuration of ``manifest`` that
+    names one, as ``load_cell`` resolves it."""
+    m = json.loads(manifest.read_text())
+    files = []
+    for w in m["workloads"]:
+        path = harness.reference_path(harness.load_cell(w["name"],
+                                                        manifest).config)
+        if path is not None and path not in files:
+            files.append(path)
+    return files
+
+
+def test_every_configured_reference_imports_neither_jax_nor_the_program(
+        tmp_path):
+    """Each reference file a configuration names, of the repo's manifest
+    and of a copy with the EDSR drop-in, loaded by path as the harness
+    loads it, in a fresh interpreter."""
+    manifest = float32_copy(tmp_path)
+    add_edsr(manifest)
+    files = reference_files(REPO / "BENCHMARK.json") + reference_files(
+        manifest)
+    assert files and files[-1].endswith("edsr.py")
+    for path in files:
+        code = ("import sys, json; from port_bench import harness; "
+                f"m = harness.reference_module({path!r}); "
+                "assert callable(m.build) and m.TINY_WIDTHS; "
+                "print(json.dumps(sorted({n.split('.')[0] "
+                "for n in sys.modules})))")
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, check=True,
+                             cwd=REPO).stdout
+        mods = set(json.loads(out.strip().splitlines()[-1]))
+        assert "torch" in mods, path
+        assert not mods & (FORBIDDEN | {"sradsgan_tpu_torch"}), path
 
 
 def test_the_harness_check_compares_whole_names(monkeypatch):

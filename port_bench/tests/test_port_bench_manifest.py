@@ -112,7 +112,10 @@ def test_named_files_are_there():
     for c in MANIFEST["configs"]:
         path = REPO / c["file"]
         assert path.is_file() and path.is_relative_to(bench)
-        assert json.loads(path.read_text())["source"] == c["source"]
+        cfg = json.loads(path.read_text())
+        assert cfg["source"] == c["source"]
+        if "reference" in cfg:  # the configuration's own plain reference
+            assert (bench / cfg["reference"]).is_file()
     for w in MANIFEST["workloads"]:
         assert (bench / "traffic" / f"{w['traffic']}.json").is_file()
         assert (bench / "limits" / f"{w['name']}.json").is_file()

@@ -6,6 +6,7 @@ import json
 import pytest
 
 from port_bench import spans_segment, trace
+from port_bench.tests.dropin import TRAIN_CELL, add_edsr
 from port_bench.tests.tiny import tiny_copy
 from sradsgan_tpu_torch.utils.spans import Span
 
@@ -14,7 +15,9 @@ PHASES = {"train": {"train.step", "train.g_forward", "train.vgg",
                     "train.g_backward", "train.g_optim", "train.d_forward",
                     "train.penalty", "train.d_backward", "train.d_optim"},
           "serve": {"serve.request", "serve.pad", "serve.forward",
-                    "serve.fetch", "serve.crop"}}
+                    "serve.fetch", "serve.crop"},
+          "pixel": {"train.step", "train.g_forward", "train.g_backward",
+                    "train.g_optim"}}
 
 
 def ev(cat, name, ts, dur, tid=1):
@@ -75,17 +78,18 @@ def test_a_recording_sums_by_unit():
         "serve.request"] == [10.0, 5.0, 10.0]
 
 
-@pytest.mark.parametrize("cell", ["sradsgan_x4.train_b16",
-                                  "sradsgan_x4.serve_ucm"])
-def test_the_spans_segment_runs_a_cell(tmp_path, cell, capsys):
+@pytest.mark.parametrize("cell,phases", [
+    ("sradsgan_x4.train_b16", "train"), ("sradsgan_x4.serve_ucm", "serve"),
+    (TRAIN_CELL, "pixel")])
+def test_the_spans_segment_runs_a_cell(tmp_path, cell, phases, capsys):
     manifest = tiny_copy(tmp_path)
+    add_edsr(manifest)  # a pixel-only step: the G's phases alone
     assert spans_segment.main(
         ["--workload", cell, "--seed", "2147483659", "--rounds", "2",
          "--per", "2", "--device", "cpu", "--manifest", str(manifest),
          "--out", str(tmp_path / "out")]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert set(line["host_ms"]) == (PHASES["train"] if "train" in cell
-                                    else PHASES["serve"])
+    assert set(line["host_ms"]) == PHASES[phases]
     assert line["wall_ms"]["off"]["n"] == line["wall_ms"]["recorded"]["n"] == 4
     assert set(line["host_ms_profiled"]) == set(line["host_ms"])
     assert (tmp_path / "out" / f"{cell}.2147483659.json").exists()

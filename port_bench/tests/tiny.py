@@ -5,10 +5,15 @@ from __future__ import annotations
 import json
 import shutil
 from pathlib import Path
+from typing import Dict, Mapping
+
+from port_bench.harness import reference_module
 
 BENCH = Path(__file__).resolve().parent.parent
 REPO = BENCH.parent
 
+# the built-in generators' (reference/models.py); a configuration's own
+# reference gives its TINY_WIDTHS
 TINY_WIDTHS = {"sradsgan": {"base_filters": 16, "n_groups": 1, "n_blocks": 1},
                "sragan": {"base_filters": 16, "n_groups": 1, "n_blocks": 2}}
 TINY_TRAFFIC = {
@@ -23,16 +28,26 @@ TINY_TRAFFIC = {
 }
 
 
+def tiny_widths(config: Mapping, bench: Path) -> Dict:
+    """The configuration's widths for the CPU copies: its reference
+    module's ``TINY_WIDTHS`` (the module a path under ``bench``), or
+    TINY_WIDTHS for a built-in generator."""
+    if "reference" in config:
+        return dict(reference_module(str(bench / config["reference"]))
+                    .TINY_WIDTHS)
+    return TINY_WIDTHS[config["model"]]
+
+
 def tiny_copy(tmp: Path) -> Path:
     """``tmp/BENCHMARK.json`` and ``tmp/port_bench``: the repo's manifest
-    and files with every configuration cut to TINY_WIDTHS and every mix to
-    TINY_TRAFFIC; returns the manifest's path."""
+    and files with every configuration cut to its tiny widths and every mix
+    to TINY_TRAFFIC; returns the manifest's path."""
     shutil.copy(REPO / "BENCHMARK.json", tmp / "BENCHMARK.json")
     shutil.copytree(BENCH, tmp / "port_bench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     for path in (tmp / "port_bench" / "configs").glob("*.json"):
         cfg = json.loads(path.read_text())
-        cfg["widths"] = TINY_WIDTHS[cfg["model"]]
+        cfg["widths"] = tiny_widths(cfg, tmp / "port_bench")
         path.write_text(json.dumps(cfg))
     for path in (tmp / "port_bench" / "traffic").glob("*.json"):
         mix = json.loads(path.read_text())

@@ -1,5 +1,6 @@
 """The training cells: back-to-back ``Trainer`` steps fed by the program's
-``DataLoader`` and ``device_prefetch`` on one card.
+``DataLoader`` and ``device_prefetch`` on one card, WGAN-GP or pixel-only
+by the configuration's recipe (``harness.RECIPES``).
 
 Set-up builds one trainer, loads the benchmark's weights into it, and
 drives it through the checked steps with the window's own call and feed;
@@ -20,7 +21,7 @@ import torch
 from torch.profiler import record_function
 
 from port_bench import compare, flops, trace
-from port_bench.harness import Cell
+from port_bench.harness import Cell, adversarial, build_generator
 from port_bench.reference.models import EXACT, Numerics, build
 from port_bench.reference.step import follow
 from port_bench.traffic import TripletSet, training_set
@@ -28,14 +29,25 @@ from port_bench.weights import make_weights, sub_seed
 
 
 def reference_weights(config: Mapping, seed: int, device) -> Dict:
-    """The run's weights of G, D and VGG19, made on the reference's
-    networks."""
-    return {"g": make_weights(build(config["model"], device,
-                                    **config["widths"]), seed, "generator"),
-            "d": make_weights(build("discriminator", device), seed,
-                              "discriminator"),
-            "vgg": make_weights(build("vgg", device), seed, "vgg",
-                                fan_in_std=True)}
+    """The run's weights of G, and for WGAN-GP of D and VGG19, made on the
+    reference's networks."""
+    weights = {"g": make_weights(build_generator(config, device), seed,
+                                 "generator")}
+    if adversarial(config):
+        weights.update(
+            d=make_weights(build("discriminator", device), seed,
+                           "discriminator"),
+            vgg=make_weights(build("vgg", device), seed, "vgg",
+                             fan_in_std=True))
+    return weights
+
+
+def trained(trainer) -> Dict:
+    """The program's trained networks with their optimizers by key: "g",
+    and "d" where the trainer has a D."""
+    return {key: (net, opt) for key, net, opt in (
+        ("g", trainer.generator, trainer.g_opt),
+        ("d", trainer.discriminator, trainer.d_opt)) if net is not None}
 
 
 def program_trainer(config: Mapping, traffic: Mapping, weights: Mapping,
@@ -46,28 +58,41 @@ def program_trainer(config: Mapping, traffic: Mapping, weights: Mapping,
     from sradsgan_tpu_torch.train.trainer import Trainer
 
     r = config["recipe"]
-    if get_spec(config["model"]).pixel_loss != r["pixel"]:
+    spec = get_spec(config["model"])
+    if spec.pixel_loss != r["pixel"]:
         raise ValueError("the program's pixel loss is not the "
                          "configuration's")
+    gan = adversarial(config)
+    if spec.adversarial != gan:
+        raise ValueError(f"the program trains {config['model']} "
+                         f"{'with' if spec.adversarial else 'without'} a D; "
+                         f"the configuration's recipe is "
+                         f"{r.get('gan', 'none')!r}")
+    overrides = {}
+    if gan:
+        overrides = {
+            "gan.gan_type": "wgan-gp", "gan.lambda_gp": r["lambda_gp"],
+            "gan.gp_inner_backward": r["penalty_weight"] == "lambda + 1",
+            "gan.clip_value": r["clip"], "gan.weight_pixel": r["weight_pixel"],
+            "gan.weight_content": r["weight_content"],
+            "gan.weight_gan": r["weight_gan"]}
     cfg = config_for_model(
         config["model"], config["scale"],
         bf16=config["precision"]["train_bf16"],
         d_bf16=config["precision"]["train_bf16"],
         save_dir=save_dir,
         model_kwargs=dict(config["widths"]),
-        **{"gan.gan_type": "wgan-gp", "gan.lambda_gp": r["lambda_gp"],
-           "gan.gp_inner_backward": r["penalty_weight"] == "lambda + 1",
-           "gan.clip_value": r["clip"], "gan.weight_pixel": r["weight_pixel"],
-           "gan.weight_content": r["weight_content"],
-           "gan.weight_gan": r["weight_gan"], "optim.lr": r["lr"],
+        **overrides,
+        **{"optim.lr": r["lr"],
            "optim.b1": r["betas"][0], "optim.b2": r["betas"][1],
            "data.batch_size": traffic["batch"],
            "data.crop_size": traffic["lr_size"] * config["scale"],
            "data.num_workers": traffic["workers"]})
     trainer = Trainer(cfg, device=device)
-    for net, key in ((trainer.generator, "g"), (trainer.discriminator, "d"),
-                     (trainer.vgg, "vgg")):
+    for key, (net, _) in trained(trainer).items():
         net.load_state_dict(weights[key])
+    if trainer.vgg is not None:
+        trainer.vgg.load_state_dict(weights["vgg"])
     return trainer
 
 
@@ -103,11 +128,10 @@ class Feed:
 
 
 def _grad_norms(trainer) -> Dict[str, Dict[str, float]]:
-    """Each leaf's first gradient as Adam holds it after one step:
+    """Each trained leaf's first gradient as Adam holds it after one step:
     exp_avg / (1 - beta1)."""
     out = {}
-    for key, net, opt in (("g", trainer.generator, trainer.g_opt),
-                          ("d", trainer.discriminator, trainer.d_opt)):
+    for key, (net, opt) in trained(trainer).items():
         b1 = opt.param_groups[0]["betas"][0]
         out[key] = {n: float(opt.state[p]["exp_avg"].norm()) / (1 - b1)
                     for n, p in net.named_parameters() if p in opt.state}
@@ -117,8 +141,7 @@ def _grad_norms(trainer) -> Dict[str, Dict[str, float]]:
 def _change_norms(trainer, weights) -> Dict[str, Dict[str, float]]:
     return {key: {n: float((p.detach() - weights[key][n]).norm())
                   for n, p in net.named_parameters()}
-            for key, net in (("g", trainer.generator),
-                             ("d", trainer.discriminator))}
+            for key, (net, _) in trained(trainer).items()}
 
 
 def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
@@ -149,7 +172,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
                        batch["hr"].float().cpu()))
         out = step(batch)
         program["losses"].append({k: float(out[k])
-                                  for k in compare.LOSS_KEYS})
+                                  for k in compare.loss_keys(config)})
         if i == 0:
             program["grad_norms"] = _grad_norms(trainer)
             program["change1_norms"] = _change_norms(trainer, weights)
@@ -234,12 +257,13 @@ def reference(config, check_inputs: Mapping, batch: int, device,
     ``rows`` of each batch and ``g_grads``, a change to the G's gradients
     before its update, plant a fault in it; ``schedule`` receives the first
     step's calls of the six functions."""
-    alphas = reference_alphas(check_inputs["alpha_seed"], batch,
-                              len(check_inputs["inputs"]))
+    steps = len(check_inputs["inputs"])
+    alphas = ([a[rows] for a in reference_alphas(check_inputs["alpha_seed"],
+                                                 batch, steps)]
+              if adversarial(config) else [None] * steps)
     return follow(config, check_inputs["weights"],
                   [(lr[rows], hr[rows]) for lr, hr in check_inputs["inputs"]],
-                  [a[rows] for a in alphas], device, numerics, g_grads,
-                  schedule)
+                  alphas, device, numerics, g_grads, schedule)
 
 
 def _sync(device) -> None:

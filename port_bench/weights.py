@@ -5,10 +5,13 @@ by name, the reference into its own.  They are drawn in one large normal
 draw and one uniform draw on a ``torch.Generator`` of the device, in the
 order of the reference's ``state_dict``:
 
-- convolution and MLP kernels normal(0, 0.02), the published init of the
-  generators and the discriminator, and VGG19's normal(0, fan_in^-1/2);
-- biases normal(0, 0.02), so that every bias takes part;
-- BatchNorm scale one, shift zero, fresh running statistics;
+- convolution, dense and MLP kernels normal(0, 0.02), the published init
+  of the generators and the discriminator, and VGG19's normal(0,
+  fan_in^-1/2);
+- biases, and any other leaf not named below, normal(0, 0.02), so that
+  every bias takes part;
+- by the kind of module that holds them: BatchNorm scale one, shift zero,
+  fresh running statistics; LayerNorm and GroupNorm gain one, shift zero;
 - both global-attention gains ``gamma`` uniform in [0.25, 0.75]: the
   published init leaves them at 0, and SGAM and CGAM would count for
   nothing.
@@ -24,6 +27,7 @@ from torch import nn
 
 WEIGHT_STD = 0.02
 GAMMA_RANGE = (0.25, 0.75)
+NORMS = (nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)
 
 # sub-streams of a run's seed
 STREAMS = {"generator": 1, "discriminator": 2, "vgg": 3, "data": 4,
@@ -75,6 +79,6 @@ def _kind(model: nn.Module, key: str) -> str:
     if leaf == "gamma":
         return "gamma"
     owner = model.get_submodule(prefix) if prefix else model
-    if isinstance(owner, nn.BatchNorm2d):
+    if isinstance(owner, NORMS):
         return "one" if leaf in ("weight", "running_var") else "zero"
     return "normal"
