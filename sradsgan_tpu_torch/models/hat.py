@@ -8,14 +8,25 @@ an overlapping cross-attention block (OCAB) and a 3x3 conv; embed 96, 6
 heads, window 9 for scales 2^n and 8 for 3^n, the RGB mean shift, a
 LeakyReLU conv and the shared sub-pixel upsample.  Pixel loss only.
 
+The defaults are the SRADSGAN repo's HAT, which the JAX package mirrors:
+the tanh GELU and one upsample conv shared by every x2 stage.
+``gelu="exact"`` and ``share_upsample=False`` are the published
+XPixelGroup HAT (``hat/archs/hat_arch.py``): ``nn.GELU``, and basicsr's
+``Upsample``, a conv and a pixel shuffle per stage.
+
 One formulation, the JAX package's default: q, k and v stay in (B, N,
 heads, d) and the attention is an einsum over that layout, the logits, the
 bias tables and the mask added and the softmax taken in float32 whatever
 the compute dtype.  No kernel stands behind it: plain PyTorch matmuls and
-softmax.  The body runs on (B, H, W, C) tokens, so LayerNorm and the dense
-layers act on the last axis; the CAB's convs and each group's closing conv
-see an NCHW view of them.  The GELU is the tanh approximation, Flax's
-``nn.gelu`` default (:func:`gelu`).
+softmax.  The spans ``hat.window_attention`` and ``hat.overlap_attention``
+(``utils/spans.py``) hold each attention's bias gather and its
+:func:`_attend` call, the OCAB's also its overlapping key and value
+windows; ``_attend.calls`` and ``_attend.logit_elements`` count the calls
+and their B_ * heads * Nq * Nk logits, eager and captured, as the kernel
+ops count their launches.  The body runs on (B, H, W, C) tokens, so
+LayerNorm and the dense layers act on the last axis; the CAB's convs and
+each group's closing conv see an NCHW view of them.  The default GELU is
+the tanh approximation, Flax's ``nn.gelu`` default (:func:`gelu`).
 
 The index tables and the shifted-window mask (:func:`rpi_sa`,
 :func:`rpi_oca`, :func:`sw_attn_mask`) are numpy, cached by shape, and
@@ -25,7 +36,8 @@ reference's ``state_dict``, which ``import_reference.import_hat`` reads
 blocks.{j}.{norm1, conv_block.cab, attn, norm2, mlp}``,
 ``layers.{i}.residual_group.overlap_attn``, ``layers.{i}.conv``, ``norm``,
 ``conv_after_body``, ``conv_before_upsample.0``, ``upsample.upsampling.0``,
-``conv_last``).
+``conv_last``; with ``share_upsample=False`` ``upsample.upsampling.0``
+and ``.2``).
 """
 
 from __future__ import annotations
@@ -41,9 +53,11 @@ from torch import nn
 from sradsgan_tpu_torch.nn.blocks import (ConvBlock, UpsampleHead, conv,
                                           materialize)
 from sradsgan_tpu_torch.ops import plain_dtype
+from sradsgan_tpu_torch.utils.spans import span
 
 MEAN = (0.4488, 0.4371, 0.4040)
 LN_EPS = 1e-5
+GELUS = ("tanh", "exact")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -51,9 +65,24 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def _activate(x: torch.Tensor, exact: bool) -> torch.Tensor:
+    """The exact GELU (the published ``nn.GELU``) or :func:`gelu`."""
+    return F.gelu(x) if exact else gelu(x)
+
+
+def _exact(kind: str) -> bool:
+    if kind not in GELUS:
+        raise ValueError(f"gelu must be one of {GELUS}, got {kind!r}")
+    return kind == "exact"
+
+
 class _Gelu(nn.Module):
+    def __init__(self, exact: bool = False):
+        super().__init__()
+        self.exact = exact
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return gelu(x)
+        return _activate(x, self.exact)
 
 
 def _layer_norm(dim: int) -> nn.LayerNorm:
@@ -154,6 +183,8 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     softmax taken in float32 (float64 kept), the weights cast back to q's
     dtype (JAX ``hat.py:214-222``)."""
     b_, nq, heads, d = q.shape
+    _attend.calls += 1
+    _attend.logit_elements += b_ * heads * nq * k.shape[1]
     attn = torch.einsum("bqhd,bkhd->bhqk", q * d ** -0.5, k)
     dtype = plain_dtype(attn)  # float32, or float64 kept
     attn = attn.to(dtype) + bias.to(dtype)[None]
@@ -165,20 +196,26 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b_, nq, -1)
 
 
+_attend.calls = 0
+_attend.logit_elements = 0
+
+
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
 
 class Mlp(nn.Module):
-    """``fc1``, GELU, ``fc2`` on the last axis."""
+    """``fc1``, GELU (exact with ``exact_gelu``, else tanh), ``fc2`` on the
+    last axis."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, exact_gelu: bool = False):
         super().__init__()
+        self.exact_gelu = exact_gelu
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+        return self.fc2(_activate(self.fc1(x), self.exact_gelu))
 
 
 class ChannelAttentionHAT(nn.Module):
@@ -204,10 +241,10 @@ class CAB(nn.Module):
     compress_ratio, GELU, 3x3 conv back, channel attention."""
 
     def __init__(self, dim: int, compress_ratio: int = 3,
-                 squeeze_factor: int = 30):
+                 squeeze_factor: int = 30, exact_gelu: bool = False):
         super().__init__()
         self.cab = nn.Sequential(
-            conv(dim, dim // compress_ratio), _Gelu(),
+            conv(dim, dim // compress_ratio), _Gelu(exact_gelu),
             conv(dim // compress_ratio, dim),
             ChannelAttentionHAT(dim, squeeze_factor))
 
@@ -236,10 +273,12 @@ class WindowAttention(nn.Module):
         h = self.num_heads
         q, k, v = (t.reshape(b_, n, h, c // h)
                    for t in self.qkv(x).chunk(3, dim=-1))
-        idx = _on_device(rpi_sa, win, device=x.device)
-        bias = self.relative_position_bias_table[idx.reshape(-1)].reshape(
-            n, n, h).permute(2, 0, 1)
-        return self.proj(_attend(q, k, v, bias, mask))
+        with span("hat.window_attention"):
+            idx = _on_device(rpi_sa, win, device=x.device)
+            bias = self.relative_position_bias_table[idx.reshape(-1)].reshape(
+                n, n, h).permute(2, 0, 1)
+            out = _attend(q, k, v, bias, mask)
+        return self.proj(out)
 
 
 class HAB(nn.Module):
@@ -251,14 +290,16 @@ class HAB(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window: int, shift: int,
                  compress_ratio: int = 3, squeeze_factor: int = 30,
-                 conv_scale: float = 0.01, mlp_ratio: float = 4.0):
+                 conv_scale: float = 0.01, mlp_ratio: float = 4.0,
+                 exact_gelu: bool = False):
         super().__init__()
         self.window, self.shift, self.conv_scale = window, shift, conv_scale
         self.norm1 = _layer_norm(dim)
-        self.conv_block = CAB(dim, compress_ratio, squeeze_factor)
+        self.conv_block = CAB(dim, compress_ratio, squeeze_factor,
+                              exact_gelu)
         self.attn = WindowAttention(dim, window, num_heads)
         self.norm2 = _layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), exact_gelu)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hgt, wdt, c = x.shape
@@ -286,7 +327,8 @@ class OCAB(nn.Module):
     (zero-padded at the image's border), in row-major order."""
 
     def __init__(self, dim: int, num_heads: int, window: int,
-                 overlap_ratio: float = 0.5, mlp_ratio: float = 2.0):
+                 overlap_ratio: float = 0.5, mlp_ratio: float = 2.0,
+                 exact_gelu: bool = False):
         super().__init__()
         self.window, self.overlap_ratio = window, overlap_ratio
         self.num_heads = num_heads
@@ -297,7 +339,7 @@ class OCAB(nn.Module):
             torch.empty((window + owin - 1) ** 2, num_heads))
         self.proj = nn.Linear(dim, dim)
         self.norm2 = _layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), exact_gelu)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hgt, wdt, c = x.shape
@@ -317,10 +359,13 @@ class OCAB(nn.Module):
             return t.permute(0, 1, 2, 4, 5, 3).reshape(-1, owin * owin,
                                                        heads, d)
 
-        idx = _on_device(rpi_oca, win, self.overlap_ratio, device=x.device)
-        bias = self.relative_position_bias_table[idx.reshape(-1)].reshape(
-            win * win, owin * owin, heads).permute(2, 0, 1)
-        out = _attend(qw, overlap_windows(k), overlap_windows(v), bias, None)
+        with span("hat.overlap_attention"):
+            kw, vw = overlap_windows(k), overlap_windows(v)
+            idx = _on_device(rpi_oca, win, self.overlap_ratio,
+                             device=x.device)
+            bias = self.relative_position_bias_table[idx.reshape(-1)].reshape(
+                win * win, owin * owin, heads).permute(2, 0, 1)
+            out = _attend(qw, kw, vw, bias, None)
         out = self.proj(window_reverse(out.reshape(-1, win, win, c), win,
                                        hgt, wdt))
         x = x + out
@@ -329,17 +374,22 @@ class OCAB(nn.Module):
 
 class ResidualGroup(nn.Module):
     """``blocks`` (HABs, odd ones shifted by window // 2), then
-    ``overlap_attn``."""
+    ``overlap_attn`` (its MLP of ratio 2, the JAX package's, whatever
+    ``mlp_ratio``; the published OCAB takes ``mlp_ratio``, which HAT_SRx4
+    sets to 2)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window: int,
                  overlap_ratio: float, mlp_ratio: float, compress_ratio: int,
-                 squeeze_factor: int, conv_scale: float):
+                 squeeze_factor: int, conv_scale: float,
+                 exact_gelu: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(
             HAB(dim, num_heads, window, 0 if i % 2 == 0 else window // 2,
-                compress_ratio, squeeze_factor, conv_scale, mlp_ratio)
+                compress_ratio, squeeze_factor, conv_scale, mlp_ratio,
+                exact_gelu)
             for i in range(depth))
-        self.overlap_attn = OCAB(dim, num_heads, window, overlap_ratio)
+        self.overlap_attn = OCAB(dim, num_heads, window, overlap_ratio,
+                                 exact_gelu=exact_gelu)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.blocks:
@@ -354,11 +404,11 @@ class RHAG(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window: int,
                  overlap_ratio: float = 0.5, mlp_ratio: float = 4.0,
                  compress_ratio: int = 3, squeeze_factor: int = 30,
-                 conv_scale: float = 0.01):
+                 conv_scale: float = 0.01, exact_gelu: bool = False):
         super().__init__()
         self.residual_group = ResidualGroup(
             dim, depth, num_heads, window, overlap_ratio, mlp_ratio,
-            compress_ratio, squeeze_factor, conv_scale)
+            compress_ratio, squeeze_factor, conv_scale, exact_gelu)
         self.conv = conv(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -376,7 +426,10 @@ class HAT(nn.Module):
     package's constructor arguments (``window_size=0``: the scale's default
     window), weights drawn as the JAX package inits them
     (``nn.blocks.materialize``).  Any H, W: the input is reflect-padded to
-    a window multiple and the output cropped back."""
+    a window multiple and the output cropped back.  ``gelu``: "tanh" (the
+    JAX package's) or "exact" (the published model's), every GELU of the
+    model; ``share_upsample``: one conv for every x2 stage (the JAX
+    package's), or a conv per stage (the published model's)."""
 
     def __init__(self, scale: int = 4, num_channels: int = 3,
                  embed_dim: int = 96,
@@ -385,9 +438,11 @@ class HAT(nn.Module):
                  window_size: int = 0, overlap_ratio: float = 0.5,
                  mlp_ratio: float = 4.0, compress_ratio: int = 3,
                  squeeze_factor: int = 30, conv_scale: float = 0.01,
-                 num_feat: int = 64, *, seed: int = 0,
+                 num_feat: int = 64, gelu: str = "tanh",
+                 share_upsample: bool = True, *, seed: int = 0,
                  device: torch.device | str = "cpu"):
         super().__init__()
+        exact = _exact(gelu)
         self.scale = scale
         self.window = window_size or default_window(scale)
         with torch.device("meta"):  # skip torch's default init
@@ -396,7 +451,8 @@ class HAT(nn.Module):
             self.patch_embed.norm = _layer_norm(embed_dim)
             self.layers = nn.ModuleList(
                 RHAG(embed_dim, depth, heads, self.window, overlap_ratio,
-                     mlp_ratio, compress_ratio, squeeze_factor, conv_scale)
+                     mlp_ratio, compress_ratio, squeeze_factor, conv_scale,
+                     exact)
                 for depth, heads in zip(depths, num_heads))
             self.norm = _layer_norm(embed_dim)
             self.conv_after_body = conv(embed_dim, embed_dim)
@@ -404,7 +460,8 @@ class HAT(nn.Module):
                                                   activation="lrelu01")
             self.upsample = nn.Module()
             self.upsample.upsampling = UpsampleHead(
-                num_feat, scale, activation=None, share_stages=True)
+                num_feat, scale, activation=None,
+                share_stages=share_upsample)
             self.conv_last = conv(num_feat, num_channels)
         materialize(self, seed)
         # the RGB mean shift, in the input's dtype (not in the state dict)

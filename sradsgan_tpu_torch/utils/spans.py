@@ -46,6 +46,13 @@ them only on those steps.
 - ``serve.fetch``: the copy back to a host array, which waits for the
   device; in the request
 - ``serve.crop``: the crop back to the asked size; in the request
+
+- ``hat.window_attention``: a HAB's window attention, its bias gather and
+  the attention (``models/hat.py`` ``WindowAttention``; ``qkv`` and
+  ``proj`` outside); in the step's or the request's forward
+- ``hat.overlap_attention``: an OCAB's overlapping key and value windows,
+  its bias gather and the attention (``models/hat.py`` ``OCAB``); in the
+  forward
 """
 
 from __future__ import annotations

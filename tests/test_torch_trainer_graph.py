@@ -37,13 +37,19 @@ OTHERS = {"drcan": dict(n_feats=8, n_resgroups=1, n_resblocks=1),
           "amssrn": dict(n_feats=8, n_blocks=1),
           "hat": dict(embed_dim=12, depths=(2,), num_heads=(2,),
                       window_size=4)}
+# HAT with the published model's options (the exact GELU, a conv per
+# upsample stage) and MLP ratio, at small widths
+PUBLISHED_HAT = dict(OTHERS["hat"], mlp_ratio=2.0, gelu="exact",
+                     share_upsample=False)
 STEPS = 6
 ALPHA_SEED = 11
 
 
-def _trainer(model, tmp_path, device="cpu", bf16=False, tag="", **fields):
+def _trainer(model, tmp_path, device="cpu", bf16=False, tag="",
+             model_kwargs=None, **fields):
     cfg = config_for_model(model, 2, bf16=bf16,
-                           model_kwargs={**MODELS, **OTHERS}[model],
+                           model_kwargs=model_kwargs
+                           or {**MODELS, **OTHERS}[model],
                            save_dir=str(tmp_path / f"{model}{tag}"),
                            **fields)
     return Trainer(cfg, device=device)
@@ -195,6 +201,20 @@ def test_every_registry_step_replays(cuda, tmp_path, model):
     graphed, eager, gens = _pair(model, tmp_path, cuda, False, **fields)
     _step_both(graphed, eager, _batches(4), gens, False, model)
     assert graphed.graph_stats == {"eager": 1, "captured": 1, "replayed": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "mixed"])
+def test_the_published_hat_step_replays(cuda, tmp_path, bf16):
+    """HAT with the published options, as the benchmark's HAT cell trains
+    it: captured, replayed, on the eager trajectory, in float32 and mixed
+    precision."""
+    graphed, eager, gens = _pair("hat", tmp_path, cuda, bf16,
+                                 model_kwargs=PUBLISHED_HAT)
+    _step_both(graphed, eager, _batches(STEPS), gens, bf16, "published")
+    assert graphed.graph_stats == {"eager": 1, "captured": 1,
+                                   "replayed": STEPS - 2}
+    assert graphed.generator.upsample.upsampling.share_stages is False
 
 
 @pytest.mark.gpu
