@@ -14,6 +14,8 @@ against the CBAM D, SRGAN and DRCAN against the plain one
 variant the reference intends but never builds: CGAM then SGAM after block
 8, its SGAM built plain (``plain=True``: JAX runs einsums at the D's few
 positions, and the gradient penalty differentiates the attention twice).
+Its convs are :class:`~sradsgan_tpu_torch.nn.conv.DoubleGradConv2d`, whose
+penalty term of second order runs on cuDNN's weight-gradient engines.
 
 The layers sit in one ``nn.Sequential`` named ``model``, in the order of the
 reference's flat Sequential, so its ``state_dict`` is what
@@ -37,6 +39,7 @@ from sradsgan_tpu_torch.nn.attention import (ChannelGate,
                                              SpatialGate,
                                              SpatialSelfAttention)
 from sradsgan_tpu_torch.nn.blocks import SameConv2d, materialize
+from sradsgan_tpu_torch.nn.conv import DoubleGradConv2d
 from sradsgan_tpu_torch.nn.norm import BatchNorm2d
 from sradsgan_tpu_torch.nn.spectral_norm import SNConv
 
@@ -71,8 +74,8 @@ class PatchDiscriminator(nn.Module):
         k = kernel_size
         with torch.device("meta"):  # skip torch's default init
             for i, (filters, stride, normalize) in enumerate(blocks, 1):
-                layers.append(nn.Conv2d(c_in, filters, k, stride,
-                                        (k - 1) // 2))
+                layers.append(DoubleGradConv2d(c_in, filters, k, stride,
+                                               (k - 1) // 2))
                 if normalize:
                     layers.append(BatchNorm2d(filters))
                 layers.append(nn.LeakyReLU(0.2))
@@ -82,7 +85,7 @@ class PatchDiscriminator(nn.Module):
                     layers += [ChannelSelfAttention(),
                                SpatialSelfAttention(filters, plain=True)]
                 c_in = filters
-            layers.append(nn.Conv2d(c_in, 1, 3, padding=1))
+            layers.append(DoubleGradConv2d(c_in, 1, 3, padding=1))
             self.model = nn.Sequential(*layers)
         materialize(self, seed)
         self.to(device)
